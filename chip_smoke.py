@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check what it computes.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout and needs one card; it builds the port's
+CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
+``build/repro_torch_kernels/``.  One JSON line per phase:
+
+  1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
+  2. build   — the three kernels, one ``nvcc`` each, all started together.
+  3. kernels — each kernel against its plain PyTorch version on the card, at
+     the shapes Algorithm 1 gives it on sw-queue (V=100, 30 apps, 3 stages),
+     on the inputs of a 10-iteration iterate and its ladder candidates:
+     lu_factor at B=90 (the iterate) and B=1080 (the 12-rung ladder);
+     chain_solve for the traffic sweep (30 chains, trans=1), the marginal
+     sweep (30 chains, trans=0, reverse, clamp) and the ladder (360 chains);
+     tagged at B=90.  Float kernels within 1e-5 relative (they sum in
+     another order and fuse multiply-adds), tagged bit-exact.  ``ms`` is
+     the kernel's device time per launch from ``torch.profiler`` (the
+     per-call event time if the trace shows no device events);
+     ``event_ms``, ``plain_ms`` and ``library_ms`` are per call: CUDA
+     events around a run of back-to-back calls, median of 25 runs after a
+     warm-up.
+  4. solve   — the main path, ``gp.solve(table_ii_instance("sw-queue"),
+     alpha=0.1, max_iters=400)`` on the card, with every kernel's launch
+     count set to 0 just before and read just after; then held against the
+     JAX reference's solve (``tests/data/torch_ref_sw_queue.json``): cost
+     history prefix and final cost within 1e-5, and both iteration counts
+     reproduced by replaying the stall latch on each history, whose first
+     disagreement must fall where the two costs differ by less than the
+     latch's own 1e-6 threshold.
+  5. profile — ``torch.profiler`` over one 32-step chunk of the main path:
+     device time per step by kernel, launches per step, and the device's
+     idle share against the solve phase's unprofiled ms per step.
+  6. parity  — the same trajectory with the stall latch off, over the
+     reference's iteration count: same count, cost history within 1e-5.
+
+Then the ``kernels`` line, the card's ``nvidia-smi`` line, and the last
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script exits non-zero without the last line.  Without CUDA, or without the
+rest of the repository, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TESTS = os.path.join(HERE, "tests")
+GOLDEN = os.path.join(TESTS, "data", "torch_ref_sw_queue.json")
+
+# Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
+PEAK_BYTES = 3.35e12        # HBM3, bytes/s
+PEAK_FP32 = 67e12           # float32 outside the tensor cores, FLOP/s
+REPS = 25
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn) -> float:
+    """Device time per ``fn()`` call: CUDA events around a run of
+    back-to-back calls (as many as fill about 2 ms, at most 50), median of
+    ``REPS`` runs after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, min(50, int(2e-3 / max(time.perf_counter() - t0, 1e-6))))
+    out = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / n)
+    return statistics.median(out)
+
+
+def device_kernels(fn, calls: int = 1) -> dict:
+    """{kernel name: (device ms in all, launches)} of the CUDA kernels that
+    ``calls`` runs of ``fn`` launch, from ``torch.profiler`` after a
+    warm-up; empty if the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: (ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_ms(fn, symbol: str):
+    """Device time per launch of the kernel named ``symbol`` in 20 calls of
+    ``fn`` (``torch.profiler``), or None if the trace does not show it."""
+    hits = [v for k, v in device_kernels(fn, 20).items() if symbol in k]
+    total = sum(ms for ms, _ in hits)
+    return total / sum(n for _, n in hits) if total > 0 else None
+
+
+def timed(fn, symbol: str) -> dict:
+    """``ms``: the kernel's device time per launch where the profiler shows
+    it, else the per-call event time; ``event_ms``: per call, launch
+    included."""
+    ev, dev = time_ms(fn), kernel_ms(fn, symbol)
+    return {"ms": ev if dev is None else dev, "event_ms": ev,
+            "ms_source": "events" if dev is None else "profiler"}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(got, want, mask=None) -> tuple[float, float]:
+    """(max abs error, max error relative to max(|want|, 1))."""
+    got, want = got.double(), want.double()
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    d = (got - want).abs()
+    return float(d.max()), float((d / want.abs().clamp_min(1.0)).max())
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 off")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, r in report.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_seconds": {n: r["seconds"] for n, r in report.items()},
+          "ptxas": ptxas, "dir": str(_build.BUILD_DIR)})
+
+
+def _tagged_rounds(route_bits, imp_bits):
+    """Rounds each member's fixed point takes (the last one confirms it)."""
+    import torch
+    from repro_torch.kernels import blocked_sets as bset
+
+    B, Vp, W = route_bits.shape
+    tb = torch.zeros((B, W), dtype=torch.int32, device=route_bits.device)
+    rounds = torch.zeros(B, dtype=torch.int64, device=route_bits.device)
+    live = torch.ones(B, dtype=torch.bool, device=route_bits.device)
+    for _ in range(Vp + 1):
+        rounds += live
+        hit = imp_bits | (route_bits & tb[:, None, :])
+        nb = bset.pack_bits((hit != 0).any(dim=-1))
+        live = live & (nb != tb).any(dim=-1)
+        tb = nb
+        if not bool(live.any()):
+            break
+    return int(rounds.sum())
+
+
+def phase_kernels():
+    """Each kernel vs its plain version at the main path's shapes."""
+    import torch
+    from repro_torch.core import engine, gp, marginals, network, traffic
+    from repro_torch.kernels import batched_solve as bs
+    from repro_torch.kernels import blocked_sets as bset
+    from repro_torch.kernels import ops
+
+    # a 10-iteration iterate: fractional splits, unlike the integral init
+    inst = network.table_ii_instance("sw-queue")
+    V = inst.V
+    phi = gp.solve(inst, alpha=0.1, max_iters=10, patience=10**6, tol=0.0).phi
+    cands, _, _ = engine.ladder_candidates(inst, phi, 0.1)
+    eye = torch.eye(V, device=phi.e.device)
+    results = {}
+
+    # lu_factor: the iterate's 90 stage systems and the ladder's 1080
+    lu_rows = []
+    for label, pe in (("iterate", phi.e), ("ladder", cands.e)):
+        mats = (eye - pe).reshape(-1, V, V).contiguous()
+        B = mats.shape[0]
+        got, want = bs.lu_factor(mats), bs.lu_factor_plain(mats)
+        ok_got, ok_want = bs.factor_ok(got), bs.factor_ok(want)
+        require(torch.equal(ok_got, ok_want), f"lu_factor {label}: ok flags")
+        good = ok_want.nonzero().squeeze(-1)
+        abs_e, rel_e = rel_err(got[good], want[good])
+        require(rel_e <= 1e-5, f"lu_factor {label}: rel err {rel_e}")
+        flops = B * sum(2 * (V - k - 1) ** 2 + (V - k - 1) for k in range(V - 1))
+        b_ms, b_by = bound(2 * mats.numel() * 4, flops)
+        row = {"shape": [B, V, V], "members_not_ok": int((~ok_want).sum()),
+               "max_abs_err": abs_e, "max_rel_err": rel_e,
+               **timed(lambda: bs.lu_factor(mats), "lu_kernel"),
+               "plain_ms": time_ms(lambda: bs.lu_factor_plain(mats)),
+               "library_ms": time_ms(lambda: torch.linalg.lu_factor(mats)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel", "name": "lu_factor", "case": label, **row})
+        lu_rows.append(row)
+    results["lu_factor"] = lu_rows
+
+    # chain_solve: traffic sweep, marginal sweep, ladder traffic sweep
+    fact = traffic.stage_factors(phi.e)
+    fl = traffic.flows(inst, phi, fact)
+    pdt_b = marginals.pdt_base(inst, phi, traffic.link_marginals(inst, fl.F),
+                               traffic.comp_marginals(inst, fl.G))
+    cfact = traffic.stage_factors(cands.e)
+    cases = (("traffic", fact, *traffic.chain_inputs(inst, phi), 1, False, False),
+             ("marginals", fact, pdt_b, phi.c, 0, True, True),
+             ("ladder", cfact, *traffic.chain_inputs(inst, cands), 1, False, False))
+    chain_rows = []
+    for label, fa, base, mult, trans, reverse, clamp in cases:
+        K = base.shape[-2]
+        lu = fa.lu.reshape(-1, K, V, V).contiguous()
+        b2 = base.reshape(-1, K, V).contiguous()
+        m2 = mult.reshape(-1, K, V).contiguous()
+        B = b2.shape[0]
+        kw = dict(trans=trans, reverse=reverse, clamp=clamp)
+        got = bs.chain_solve(lu, b2, m2, **kw)
+        want = bs.chain_solve_plain(lu, b2, m2, **kw)
+        ok = fa.ok.reshape(B, K).all(dim=-1)
+        fin = torch.isfinite(want).all(dim=-1).all(dim=-1) & ok
+        require(torch.equal(torch.isfinite(got).all(dim=-1).all(dim=-1) & ok, fin),
+                f"chain_solve {label}: finite members")
+        abs_e, rel_e = rel_err(got[fin], want[fin])
+        require(rel_e <= 1e-5, f"chain_solve {label}: rel err {rel_e}")
+        b_ms, b_by = bound(B * K * (V * V + 3 * V) * 4, B * K * (2 * V * V + 2 * V))
+        row = {"shape": [B, K, V], "trans": trans, "reverse": reverse,
+               "clamp": clamp, "chains_not_finite": int((~fin).sum()),
+               "max_abs_err": abs_e, "max_rel_err": rel_e,
+               **timed(lambda: bs.chain_solve(lu, b2, m2, **kw), "chain_kernel"),
+               "plain_ms": time_ms(lambda: bs.chain_solve_plain(lu, b2, m2, **kw)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel", "name": "chain_solve", "case": label, **row})
+        chain_rows.append(row)
+    results["chain_solve"] = chain_rows
+
+    # tagged: the iterate's blocked-set inputs, and a congested variant
+    # (routes of a 3-iteration iterate at twice the rates under the init
+    # strategy's marginals: stale marginals make improper links)
+    m = marginals.marginals(inst, phi, fl, fact)
+    hot = network.table_ii_instance("sw-queue", rate_scale=4.0)
+    hot_phi = gp.solve(hot, alpha=0.1, max_iters=3, patience=10**6, tol=0.0).phi
+    hot_pdt = marginals.marginals(hot, gp.init_phi(hot)).pdt
+    tag_rows = []
+    for label, pe, pdt in (("iterate", phi.e, m.pdt), ("congested", hot_phi.e, hot_pdt)):
+        route = pe > 0.0
+        improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
+        Vp, W = bset.padded_nodes(V)
+
+        def packed(x):
+            bits = bset.pack_bits(x.reshape(-1, V, V))
+            pad = bits.new_zeros((bits.shape[0], Vp - V, W))
+            return torch.cat([bits, pad], dim=1).contiguous()
+
+        r, i = packed(route), packed(improper)
+        B = r.shape[0]
+        got, want = bset.tagged(r, i), bset.tagged_plain(r, i)
+        require(torch.equal(got, want), f"tagged {label}: words bit-equal")
+        dense = bset.tagged_scan_dense(route.reshape(-1, V, V), improper.reshape(-1, V, V))
+        require(torch.equal(bset.unpack_bits(got, V), dense),
+                f"tagged {label}: equals the dense sweep")
+        b_ms, b_by = bound(2 * r.numel() * 4 + got.numel() * 4,
+                           3 * _tagged_rounds(r, i) * Vp * W)
+        row = {"shape": [B, Vp, W], "tagged_nodes": int(dense.sum()),
+               "improper_links": int(improper.sum()), "max_abs_err": 0.0,
+               **timed(lambda: bset.tagged(r, i), "tagged_kernel"),
+               "plain_ms": time_ms(lambda: bset.tagged_plain(r, i)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel", "name": "tagged", "case": label, **row})
+        tag_rows.append(row)
+    results["tagged"] = tag_rows
+    ops.reset_launch_counts()
+    return results
+
+
+def _rel_hist(got, want) -> float:
+    import torch
+
+    got = torch.as_tensor(got, dtype=torch.float64).cpu()
+    want = torch.as_tensor(want, dtype=torch.float64)
+    return float(((got - want).abs() / want.abs().clamp_min(1e-9)).max())
+
+
+def phase_solve(ref):
+    """The main path on the card, held against the reference's solve."""
+    import torch
+    from _torch_cases import stall_stop
+    from repro_torch.core import conditions, gp, network
+    from repro_torch.kernels import ops
+
+    inst = network.table_ii_instance("sw-queue")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gp.solve(inst, alpha=0.1, max_iters=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = min(400, -(-res.iterations // gp._SOLVE_CHUNK) * gp._SOLVE_CHUNK)
+    resid = float(conditions.sufficiency_residual(inst, res.phi))
+    hist = res.cost_history.cpu()
+    ref_hist = ref["cost_history"]
+    n = min(len(hist), len(ref_hist))
+    prefix = _rel_hist(hist[:n], ref_hist[:n])
+    final = abs(res.final_cost - ref_hist[-1]) / abs(ref_hist[-1])
+    # the iteration counts: the stall latch replayed on each history, and
+    # the first iteration at which the two latches disagree
+    card_stop, card_imp = stall_stop(hist.numpy())
+    ref_stop, ref_imp = stall_stop(ref_hist)
+    flips = [i for i, (a, b) in enumerate(zip(ref_imp, card_imp), 1) if a != b]
+    flip = flips[0] if flips else None
+    flip_rel = _rel_hist(hist[flip:flip + 1], ref_hist[flip:flip + 1]) if flips else 0.0
+    emit({"phase": "solve", "scenario": "sw-queue", "iterations": res.iterations,
+          "reference_iterations": ref["iterations"], "final_cost": res.final_cost,
+          "reference_final_cost": ref["cost_history"][-1],
+          "final_cost_rel": final, "prefix_len": n, "prefix_max_rel": prefix,
+          "stall_replay": {"card_stop": card_stop, "reference_stop": ref_stop,
+                           "first_disagreement": flip,
+                           "cost_rel_there": flip_rel},
+          "sufficiency_residual": resid, "wall_s": wall, "steps_run": steps,
+          "ms_per_step": wall / steps * 1e3,
+          "ms_per_committed_iteration": wall / res.iterations * 1e3,
+          "launches": launches,
+          "launches_per_step": {k: v / steps for k, v in launches.items()}})
+    require(bool(torch.isfinite(hist).all()) and res.phi.e.shape == (30, 3, 100, 100),
+            "finite costs, strategy of the expected shape")
+    require(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    require(prefix <= 1e-5, f"cost history prefix within 1e-5 of the reference: {prefix}")
+    require(final <= 1e-5, f"final cost within 1e-5 of the reference: {final}")
+    require((card_stop, ref_stop) == (res.iterations, ref["iterations"]),
+            f"the stall latch replays both counts: {(card_stop, ref_stop)}")
+    require(flip_rel < 1e-6, f"latches disagree where costs differ by {flip_rel}")
+    return launches, wall / steps * 1e3
+
+
+def phase_profile(ms_per_step: float) -> None:
+    """Where a GP step's device time goes: ``torch.profiler`` over one
+    32-step chunk of the main path; the idle share is measured against the
+    unprofiled ``ms_per_step`` of the solve phase."""
+    from repro_torch.core import gp, network
+
+    inst = network.table_ii_instance("sw-queue")
+    phi0 = gp.init_phi(inst)
+    steps = gp._SOLVE_CHUNK
+    kern = device_kernels(lambda: gp.solve(inst, phi0, alpha=0.1, max_iters=steps,
+                                           patience=10**6, tol=0.0))
+    per_step = {k: ms / steps for k, (ms, _) in kern.items()}
+    busy = sum(per_step.values())
+    traced = busy > 0
+    ours = {name: sum(v for k, v in per_step.items() if sym in k)
+            for name, sym in (("lu_factor", "lu_kernel"),
+                              ("chain_solve", "chain_kernel"),
+                              ("tagged", "tagged_kernel"))}
+    others = sorted(((v, k) for k, v in per_step.items()
+                     if not any(s in k for s in ("lu_kernel", "chain_kernel",
+                                                 "tagged_kernel"))), reverse=True)
+    emit({"phase": "profile", "steps": steps,
+          "device_ms_per_step": busy if traced else None,
+          "kernels_ms_per_step": ours,
+          "other_ms_per_step": busy - sum(ours.values()),
+          "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
+          "idle_share": 1 - busy / ms_per_step if traced else None,
+          "top_other": [[k[:80], v] for v, k in others[:6]]})
+
+
+def phase_parity(ref):
+    """Stall latch off, over the reference's iteration count."""
+    from repro_torch.core import gp, network
+
+    inst = network.table_ii_instance("sw-queue")
+    res = gp.solve(inst, alpha=0.1, max_iters=ref["iterations"], patience=10**6,
+                   tol=0.0)
+    err = _rel_hist(res.cost_history, ref["cost_history"])
+    emit({"phase": "parity", "iterations": res.iterations,
+          "reference_iterations": ref["iterations"], "cost_history_max_rel": err})
+    require(res.iterations == ref["iterations"], "same iteration count")
+    require(err <= 1e-5, f"cost history within 1e-5 of the reference: {err}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")) or not os.path.exists(GOLDEN):
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path[:0] = [src, TESTS]
+    import repro_torch  # noqa: F401  (sets the TF32 flags)
+
+    with open(GOLDEN) as fh:
+        ref = json.load(fh)
+    smi = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    launches, ms_per_step = phase_solve(ref)
+    phase_profile(ms_per_step)
+    phase_parity(ref)
+
+    meta = {
+        "lu_factor": ("src/repro_torch/kernels/csrc/batched_lu.cu",
+                      "src/repro/kernels/batched_solve.py:418", -1),
+        "chain_solve": ("src/repro_torch/kernels/csrc/chain_solve.cu",
+                        "src/repro/kernels/batched_solve.py:462", -1),
+        "tagged": ("src/repro_torch/kernels/csrc/tagged.cu",
+                   "src/repro/kernels/blocked_sets.py:182", 1),
+    }
+    line = []
+    for name, (source, replaces, pick) in meta.items():
+        rows = kernels[name]
+        main_row = rows[pick]
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": max(r["max_abs_err"] for r in rows),
+                     "ms": main_row["ms"], "ms_source": main_row["ms_source"],
+                     "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
+                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                     "library_ms": main_row["library_ms"],
+                     "shape": main_row["shape"], "cases": rows})
+    emit({"kernels": line})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,195 @@
+"""Batched unpivoted LU and the fused chain solve of the GP stage systems.
+
+Port of ``repro.kernels.batched_solve``.  Every GP iteration solves
+O(ladder x apps x stages) small dense systems
+
+    (I - Phi_k)   pdt = b      (marginal recursion (4), row form)
+    (I - Phi_k)^T t   = inject (traffic fixed point, Section II)
+
+whose matrices differ only by a transpose, so one factorization serves both.
+
+  * :func:`lu_factor` — unpivoted LU of a (B, V, V) batch into packed L\\U
+    factors.  ``I - Phi`` of a loop-free strategy is a nonsingular M-matrix,
+    for which LU without pivoting exists and is stable; a loopy candidate's
+    ~0 pivot carries inf/nan in that member only, and :func:`factor_ok`
+    flags it.
+  * :func:`chain_solve` — walks each member's K stages,
+    ``x_k = A_k^{-1(T)}(base_k + mult_k * x_prev)``, with two triangular
+    sweeps per stage from the packed factors.
+
+Each wrapper launches its CUDA kernel (``csrc/batched_lu.cu``,
+``csrc/chain_solve.cu``) for a CUDA tensor and runs the plain PyTorch
+version of the same arithmetic for a CPU tensor; the plain versions are
+also the on-card oracles of ``chip_smoke.py``.  ``<wrapper>.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# |U_ii| below this is treated as a structurally singular member.
+PIVOT_TINY = 1e-30
+
+
+def _smem_lu(V: int) -> int:
+    return 4 * V * (V | 1)
+
+
+def _smem_chain(V: int) -> int:
+    return 4 * (V * (V | 1) + 2 * V)
+
+
+def _check_cuda(x: torch.Tensor, name: str, ndim: int) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: want float32, got {x.dtype}")
+    if x.ndim != ndim:
+        raise ValueError(f"{name}: want {ndim} dims, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_smem(nbytes: int, V: int, what: str) -> None:
+    """One stage's factor lives in shared memory, which caps V near 240."""
+    if nbytes > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: V={V} needs {nbytes} B of shared memory per block, "
+            f"above the card's {_build.SMEM_LIMIT} B; larger V needs the "
+            f"sparse path (not ported yet)")
+
+
+# ---------------------------------------------------------------------------
+# lu_factor
+# ---------------------------------------------------------------------------
+
+def lu_factor_plain(mats: torch.Tensor) -> torch.Tensor:
+    """Right-looking unpivoted elimination: (B, V, V) -> packed (B, V, V).
+
+    The same column steps as the kernel: divide column k below the
+    diagonal by the pivot, then the rank-1 update of the trailing block.
+    """
+    a = mats.to(torch.float32).clone()
+    V = a.shape[-1]
+    for k in range(V - 1):
+        l = a[:, k + 1:, k] / a[:, k, k, None]
+        a[:, k + 1:, k] = l
+        a[:, k + 1:, k + 1:] -= l[:, :, None] * a[:, k, None, k + 1:]
+    return a
+
+
+def lu_factor(mats: torch.Tensor) -> torch.Tensor:
+    """Unpivoted LU of a (B, V, V) float32 batch -> packed (B, V, V) factors.
+
+    CUDA tensor: one launch of ``csrc/batched_lu.cu``.  CPU tensor: the
+    plain version.
+    """
+    if mats.device.type == "cpu":
+        return lu_factor_plain(mats)
+    _check_cuda(mats, "lu_factor", 3)
+    B, V, V2 = mats.shape
+    if V != V2:
+        raise ValueError(f"lu_factor: matrices must be square, got {tuple(mats.shape)}")
+    _check_smem(_smem_lu(V), V, "lu_factor")
+    out = torch.empty_like(mats)
+    fn = _build.function("batched_lu", "repro_lu_factor",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with torch.cuda.device(mats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(mats.data_ptr(), out.data_ptr(), B, V, stream)
+    _build.check("batched_lu", rc, "lu_factor")
+    lu_factor.launches += 1
+    return out
+
+
+lu_factor.launches = 0
+
+
+def factor_ok(lu: torch.Tensor) -> torch.Tensor:
+    """(...,) bool per-member condition flags from packed factors.
+
+    Not ok: a non-finite entry, or a ~zero U pivot.  The batched analogue
+    of LAPACK's ``info``; flagged members carry inf/nan forward to
+    ``traffic_is_valid`` instead of raising.
+    """
+    diag = torch.diagonal(lu, dim1=-2, dim2=-1)
+    finite = torch.isfinite(lu).all(dim=-1).all(dim=-1)
+    return finite & (diag.abs().amin(dim=-1) > PIVOT_TINY)
+
+
+# ---------------------------------------------------------------------------
+# chain_solve
+# ---------------------------------------------------------------------------
+
+def _two_sweep_plain(lu: torch.Tensor, b: torch.Tensor, trans: int) -> torch.Tensor:
+    """Solve L U x = b (trans=0) or (L U)^T x = b (trans=1) per member.
+
+    Both are a forward then a backward row sweep of the packed factor, read
+    transposed for trans=1: U^T (lower, with diagonal) then L^T (unit upper).
+    """
+    m = lu.transpose(-1, -2) if trans else lu
+    V = b.shape[-1]
+    y = b.clone()
+    for i in range(V):
+        s = (m[:, i, :i] * y[:, :i]).sum(-1)
+        y[:, i] = (y[:, i] - s) / m[:, i, i] if trans else y[:, i] - s
+    for i in range(V - 1, -1, -1):
+        s = (m[:, i, i + 1:] * y[:, i + 1:]).sum(-1)
+        y[:, i] = y[:, i] - s if trans else (y[:, i] - s) / m[:, i, i]
+    return y
+
+
+def chain_solve_plain(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
+                      *, trans: int = 0, reverse: bool = False,
+                      clamp: bool = False) -> torch.Tensor:
+    """Plain chain solve: lu (B, K, V, V), base/mult (B, K, V) -> (B, K, V)."""
+    B, K, V = base.shape
+    x = torch.zeros((B, V), dtype=torch.float32, device=base.device)
+    out = torch.empty((B, K, V), dtype=torch.float32, device=base.device)
+    for k in (range(K - 1, -1, -1) if reverse else range(K)):
+        x = _two_sweep_plain(lu[:, k], base[:, k] + mult[:, k] * x, trans)
+        if clamp:
+            x = torch.maximum(x, x.new_zeros(()))      # NaN stays NaN
+        out[:, k] = x
+    return out
+
+
+def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
+                *, trans: int = 0, reverse: bool = False,
+                clamp: bool = False) -> torch.Tensor:
+    """Fused chain solve: lu (B, K, V, V), base/mult (B, K, V) -> (B, K, V).
+
+    CUDA tensors: one launch of ``csrc/chain_solve.cu``, one block per
+    chain.  CPU tensors: the plain version.  Identity row permutation
+    (the factors of :func:`lu_factor`).
+    """
+    if lu.device.type == "cpu":
+        return chain_solve_plain(lu, base, mult, trans=trans, reverse=reverse,
+                                 clamp=clamp)
+    _check_cuda(lu, "chain_solve lu", 4)
+    _check_cuda(base, "chain_solve base", 3)
+    _check_cuda(mult, "chain_solve mult", 3)
+    B, K, V, V2 = lu.shape
+    if V != V2 or base.shape != (B, K, V) or mult.shape != (B, K, V):
+        raise ValueError(
+            f"chain_solve: shapes lu {tuple(lu.shape)}, base "
+            f"{tuple(base.shape)}, mult {tuple(mult.shape)} do not agree")
+    if base.device != lu.device or mult.device != lu.device:
+        raise ValueError("chain_solve: all inputs must be on one device")
+    _check_smem(_smem_chain(V), V, "chain_solve")
+    out = torch.empty_like(base)
+    fn = _build.function("chain_solve", "repro_chain_solve",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(lu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(lu.data_ptr(), base.data_ptr(), mult.data_ptr(), out.data_ptr(),
+                B, K, V, int(trans), int(reverse), int(clamp), stream)
+    _build.check("chain_solve", rc, "chain_solve")
+    chain_solve.launches += 1
+    return out
+
+
+chain_solve.launches = 0

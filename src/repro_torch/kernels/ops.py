@@ -1,0 +1,98 @@
+"""Public wrappers around the kernels, over any leading batch dims.
+
+Port of the batched-LU and blocked-set parts of ``repro.kernels.ops``.
+Leading dims are flattened into the kernel's batch and restored on return,
+so the GP engine hands over ``(A, K1, V, V)`` stacks for the iterate and
+``(ladder, A, K1, V, V)`` stacks for the stepsize ladder alike, each in ONE
+launch.  Every wrapper is per-member: no wrapper reduces across members.
+
+The factors are unpivoted (identity permutation), so :class:`BatchedLU`
+carries the packed ``lu`` and the per-member ``ok`` flag only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import batched_solve as _bs
+from repro_torch.kernels import blocked_sets as _bset
+
+# The kernel wrappers whose ``launches`` counters record the main path.
+KERNELS = {
+    "lu_factor": _bs.lu_factor,
+    "chain_solve": _bs.chain_solve,
+    "tagged": _bset.tagged,
+}
+
+
+def launch_counts() -> dict:
+    """{kernel name: CUDA launches counted since the last reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+class BatchedLU(NamedTuple):
+    """Packed LU factors of a batch of stage systems.
+
+    lu: (..., V, V) packed L\\U (unit diagonal of L implicit), unpivoted
+    ok: (...,) bool per-member condition flag (False: singular or
+        non-finite factor; the member's solves carry inf/nan)
+    """
+
+    lu: torch.Tensor
+    ok: torch.Tensor
+
+
+def batched_factor(mats: torch.Tensor) -> BatchedLU:
+    """Factor a batch of dense systems: mats (..., V, V) -> BatchedLU."""
+    lead, V = mats.shape[:-2], mats.shape[-1]
+    lu = _bs.lu_factor(mats.reshape(-1, V, V).contiguous())
+    return BatchedLU(lu=lu.reshape(lead + (V, V)),
+                     ok=_bs.factor_ok(lu).reshape(lead))
+
+
+def fused_chain_solve(fact: BatchedLU, base: torch.Tensor, mult: torch.Tensor,
+                      *, trans: int = 0, reverse: bool = False,
+                      clamp: bool = False) -> torch.Tensor:
+    """Sequential solve along the stage axis of a factor stack.
+
+    fact with leading dims (..., K), base/mult (..., K, V) -> x (..., K, V),
+    walking k forward (or backward with ``reverse=True``):
+
+        x_k = A_k^{-1(T)} (base_k + mult_k * x_prev),   x_prev(start) = 0,
+
+    optionally clamped at 0.  One kernel launch covers every chain.
+    """
+    K, V = base.shape[-2:]
+    x = _bs.chain_solve(fact.lu.reshape(-1, K, V, V).contiguous(),
+                        base.reshape(-1, K, V).contiguous(),
+                        mult.reshape(-1, K, V).contiguous(),
+                        trans=trans, reverse=reverse, clamp=clamp)
+    return x.reshape(base.shape)
+
+
+def blocked_tagged(route: torch.Tensor, improper: torch.Tensor) -> torch.Tensor:
+    """Category-3 "tagged node" flags: route, improper (..., V, V) bool ->
+    tagged (..., V) bool, the least fixed point of
+
+        tagged[p] = exists q: route[p, q] and (improper[p, q] or tagged[q]).
+
+    Both matrices are packed into 32-bit words once; one kernel launch
+    iterates every member to its fixed point.
+    """
+    lead, V = route.shape[:-2], route.shape[-1]
+    Vp, _ = _bset.padded_nodes(V)
+
+    def packed(x):
+        bits = _bset.pack_bits(x.reshape(-1, V, V))              # (B, V, W)
+        pad = bits.new_zeros((bits.shape[0], Vp - V, bits.shape[2]))
+        return torch.cat([bits, pad], dim=1).contiguous()        # (B, Vp, W)
+
+    words = _bset.tagged(packed(route), packed(improper))
+    return _bset.unpack_bits(words, V).reshape(lead + (V,))

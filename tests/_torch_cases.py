@@ -1,0 +1,54 @@
+"""Seeded numpy inputs shared by the port's kernel tests (CPU and card)."""
+
+import numpy as np
+
+
+def stage_mats(rng, B, V, loopy=()):
+    """(B, V, V) float32 stage systems I - Phi of random loop-free strategies.
+
+    Each row of Phi spreads 0.3..1 of its mass over a few later nodes of a
+    hidden order (a DAG), so I - Phi is a nonsingular M-matrix.  Members
+    listed in ``loopy`` get a 2-cycle 0 <-> 1 carrying all of rows 0 and 1,
+    which makes them singular.
+    """
+    phi = np.zeros((B, V, V))
+    for b in range(B):
+        for i in range(V - 1):
+            js = rng.choice(np.arange(i + 1, V), size=min(3, V - 1 - i),
+                            replace=False)
+            phi[b, i, js] = rng.dirichlet(np.ones(len(js))) * rng.uniform(0.3, 1.0)
+        perm = rng.permutation(V)
+        phi[b] = phi[b][np.ix_(perm, perm)]
+    for b in loopy:
+        phi[b, 0, :] = 0.0
+        phi[b, 1, :] = 0.0
+        phi[b, 0, 1] = phi[b, 1, 0] = 1.0
+    return (np.eye(V)[None] - phi).astype(np.float32)
+
+
+def random_bits(rng, B, V, density):
+    """Routing DAGs in a hidden node order, with a few improper links."""
+    route = np.triu(rng.random((B, V, V)) < density, k=1)
+    perm = rng.permutation(V)
+    route = route[:, perm][:, :, perm]
+    improper = route & (rng.random((B, V, V)) < 0.02)
+    return route, improper
+
+
+def stall_stop(costs, patience=40, max_iters=400):
+    """Replay the solve loop's stall latch on a cost history.
+
+    Returns ``(stop, improved)``: the iteration at which no improvement
+    above 1e-6 relative for ``patience`` iterations (or the budget) ends
+    the solve, or None, and the per-iteration improvement flags, computed
+    in float32 as the loop computes them.
+    """
+    h = np.asarray(costs, dtype=np.float32)
+    best, stall, improved = h[0], 0, []
+    for i in range(1, len(h)):
+        imp = bool(h[i] < best * np.float32(1 - 1e-6))
+        improved.append(imp)
+        best, stall = (h[i], 0) if imp else (best, stall + 1)
+        if stall >= patience or i >= max_iters:
+            return i, improved
+    return None, improved
