@@ -8,7 +8,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
 ``build/repro_torch_kernels/``.  One JSON line per phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
-  2. build   — the three kernels, one ``nvcc`` each, all started together.
+  2. build   — the five kernels, one ``nvcc`` each, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card, at
      the shapes Algorithm 1 gives it on sw-queue (V=100, 30 apps, 3 stages),
      on the inputs of a 10-iteration iterate and its ladder candidates:
@@ -35,11 +35,36 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
      idle share against the solve phase's unprofiled ms per step.
   6. parity  — the same trajectory with the stall latch off, over the
      reference's iteration count: same count, cost history within 1e-5.
+  7. sparse kernels — the metro path's two kernels against their plain
+     versions on the card: ``bsr_chain`` (the blocked chain solve) on
+     metro-sw V=1000 at ``init_phi`` (traffic, marginal and the 36-member
+     ladder sweeps), on metro-geant V=1000 (traffic, the widest block
+     rows) and on the congested sw-queue ladder (rate_scale 2) with
+     routing loops put into three members; ``tagged_nbr`` on metro-sw
+     V=1000 and on congested sw-queue inputs.  Values within 1e-5 with the
+     same +inf entries and the same sweep counts (kernel and plain version
+     share one summation order); tagged bit-exact.  ``gather_ms`` is the
+     time of the ``block_values`` gather that feeds ``bsr_chain``.
+  8. metro   — the second main path, ``gp.solve(metro_instance("sw",
+     1000))``, on the sparse route, with every launch count set to 0 just
+     before the default solve and read just after: ``bsr_chain`` and
+     ``tagged_nbr`` launched on every step, the dense kernels never.  Held
+     against the JAX reference (``tests/data/torch_ref_metro_sw1000.npz``):
+     stage traffic and ``dD/dt`` at ``init_phi`` within 1e-5 relative to
+     max(|ref|, 1), the default solve's iteration count equal and its cost
+     history within 1e-5, a 32-step latch-off solve's cost history within
+     1e-5.
+  9. metro_profile — ``torch.profiler`` over one 32-step chunk of the
+     metro solve: device time per step, top device operations, idle share
+     against the metro phase's unprofiled ms per step.
 
-Then the ``kernels`` line, the card's ``nvidia-smi`` line, and the last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-script exits non-zero without the last line.  Without CUDA, or without the
-rest of the repository, it exits non-zero at once.
+Then the ``kernels`` line (each kernel's ``launches`` counted over the
+default solve of the main path it lies on: sw-queue for the dense route's
+three, metro-sw for the sparse route's two), the card's ``nvidia-smi``
+line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the script exits non-zero without the last line.
+Without CUDA, or without the rest of the repository, it exits non-zero at
+once.
 """
 
 from __future__ import annotations
@@ -54,6 +79,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.join(HERE, "tests")
 GOLDEN = os.path.join(TESTS, "data", "torch_ref_sw_queue.json")
+GOLDEN_METRO = os.path.join(TESTS, "data", "torch_ref_metro_sw1000.npz")
+
+# The metro phase's final strategy check, entry by entry: strategy entries
+# are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
+# reference's strategy moves by about 1e-4 over its 32 latch-off steps.
+PHI_TOL = 1e-6
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
 PEAK_BYTES = 3.35e12        # HBM3, bytes/s
@@ -359,7 +390,10 @@ def phase_solve(ref):
           "launches_per_step": {k: v / steps for k, v in launches.items()}})
     require(bool(torch.isfinite(hist).all()) and res.phi.e.shape == (30, 3, 100, 100),
             "finite costs, strategy of the expected shape")
-    require(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    dense = ("lu_factor", "chain_solve", "tagged")
+    require(all(launches[k] > 0 for k in dense)
+            and not any(v for k, v in launches.items() if k not in dense),
+            f"every kernel of the dense route launched, no other: {launches}")
     require(prefix <= 1e-5, f"cost history prefix within 1e-5 of the reference: {prefix}")
     require(final <= 1e-5, f"final cost within 1e-5 of the reference: {final}")
     require((card_stop, ref_stop) == (res.iterations, ref["iterations"]),
@@ -412,6 +446,267 @@ def phase_parity(ref):
     require(err <= 1e-5, f"cost history within 1e-5 of the reference: {err}")
 
 
+def _bsr_row(label, inst, phi_e, base, mult, trans, reverse=False, clamp=False):
+    """One ``bsr_chain`` case: the kernel against its plain version on the
+    inputs of one chain call of a GP step, with the gather beside it."""
+    import torch
+    from repro_torch.kernels import sparse_solve as ss
+
+    K, V = base.shape[-2:]
+    pe = phi_e.reshape(-1, K, V, V)
+    M = pe.transpose(-1, -2) if trans else pe
+    blk_nbr, blk_mask = inst.blk_nbr, inst.blk_mask
+    bvals = ss.block_values(M, blk_nbr, blk_mask)
+    b2 = base.reshape(-1, K, V).contiguous()
+    m2 = mult.reshape(-1, K, V).contiguous()
+    B = b2.shape[0]
+    NB, BD = blk_nbr.shape
+    kw = dict(reverse=reverse, clamp=clamp)
+    got, sweeps = ss.chain_solve_bsr(bvals, blk_nbr, b2, m2, with_sweeps=True, **kw)
+    want, sweeps_plain = ss.chain_solve_bsr_plain(bvals, blk_nbr, b2, m2,
+                                                  with_sweeps=True, **kw)
+    require(torch.equal(sweeps, sweeps_plain), f"bsr_chain {label}: sweep counts")
+    require(torch.equal(torch.isinf(got), torch.isinf(want))
+            and not bool(torch.isnan(got).any()), f"bsr_chain {label}: +inf entries")
+    fin = torch.isfinite(want)
+    abs_e, rel_e = rel_err(got, want, fin) if bool(fin.any()) else (0.0, 0.0)
+    require(rel_e <= 1e-5, f"bsr_chain {label}: rel err {rel_e}")
+    total_sweeps = int(sweeps.sum())
+    # only the unmasked blocks carry work; the masked slots pad BD with zeros
+    nnz = int(blk_mask.sum())
+    nbytes = (B * K * nnz * 32 * 32 + 3 * b2.numel() + sweeps.numel()) * 4 + nnz * 8
+    b_ms, b_by = bound(nbytes, total_sweeps * nnz * 32 * 32 * 2)
+    row = {"shape": [B, K, NB, BD, 32, 32], "V": V, "nonzero_blocks": nnz,
+           "trans": trans,
+           "reverse": reverse, "clamp": clamp,
+           "sweeps_total": total_sweeps, "sweeps_max": int(sweeps.max()),
+           "members_at_cap": int((sweeps == V + 2).any(dim=-1).sum()),
+           "members_not_finite": int((~fin.all(dim=-1).all(dim=-1)).sum()),
+           "bit_equal": bool(torch.equal(got, want)),
+           "max_abs_err": abs_e, "max_rel_err": rel_e,
+           **timed(lambda: ss.chain_solve_bsr(bvals, blk_nbr, b2, m2, **kw),
+                   "bsr_chain_kernel"),
+           "plain_ms": time_ms(lambda: ss.chain_solve_bsr_plain(bvals, blk_nbr, b2,
+                                                                m2, **kw)),
+           "gather_ms": time_ms(lambda: ss.block_values(M, blk_nbr, blk_mask)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernel", "name": "bsr_chain", "case": label, **row})
+    return row
+
+
+def _tagged_nbr_row(label, inst, route, improper):
+    """One ``tagged_nbr`` case: kernel against plain version, bit-exact."""
+    import torch
+    from repro_torch.kernels import blocked_sets as bset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_solve as ss
+
+    V = inst.V
+    r2, i2 = route.reshape(-1, V, V), improper.reshape(-1, V, V)
+    nbr = inst.out_nbr
+    idx = nbr.expand((r2.shape[0],) + nbr.shape)
+    rv = torch.gather(r2, -1, idx) & inst.out_mask
+    iv = torch.gather(i2, -1, idx)
+    got, rounds = ss.tagged_nbr(rv, iv, nbr, with_rounds=True)
+    want, rounds_plain = ss.tagged_nbr_plain(rv, iv, nbr, with_rounds=True)
+    require(torch.equal(got, want) and torch.equal(rounds, rounds_plain),
+            f"tagged_nbr {label}: flags and rounds bit-equal")
+    require(torch.equal(got, bset.tagged_scan_dense(r2, i2)),
+            f"tagged_nbr {label}: equals the dense sweep")
+    if V <= 200:   # the bitset kernel holds (Vp, W) words in shared memory
+        require(torch.equal(got, ops.blocked_tagged(r2, i2)),
+                f"tagged_nbr {label}: equals the bitset kernel")
+    B, _, D = rv.shape
+    # only the edges carry work; the masked columns pad the degree to D
+    edges = int(inst.out_mask.sum())
+    b_ms, b_by = bound(2 * B * edges + edges * 8 + got.numel() + B * 4,
+                       int(rounds.sum()) * edges * 2)
+    row = {"shape": [B, V, D], "edges": edges, "tagged_nodes": int(got.sum()),
+           "improper_links": int(improper.sum()), "rounds_max": int(rounds.max()),
+           "rounds_total": int(rounds.sum()), "max_abs_err": 0.0,
+           **timed(lambda: ss.tagged_nbr(rv, iv, nbr), "tagged_nbr_kernel"),
+           "plain_ms": time_ms(lambda: ss.tagged_nbr_plain(rv, iv, nbr)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "kernel", "name": "tagged_nbr", "case": label, **row})
+    return row
+
+
+def phase_sparse_kernels():
+    """The metro path's kernels vs their plain versions at its shapes."""
+    from _torch_cases import with_loops
+    from repro_torch.core import engine, gp, marginals, network, traffic
+    from repro_torch.kernels import ops
+
+    bsr_rows, tag_rows = [], []
+    # metro-sw V=1000 at init_phi: the three chain calls of a step
+    metro = network.metro_instance("sw", 1000)
+    phi = gp.init_phi(metro)
+    fl = traffic.flows(metro, phi)
+    m = marginals.marginals(metro, phi, fl)
+    cands, _, _ = engine.ladder_candidates(metro, phi, 0.1)
+    bsr_rows.append(_bsr_row("metro-sw-traffic", metro, phi.e,
+                             *traffic.chain_inputs(metro, phi), 1))
+    bsr_rows.append(_bsr_row(
+        "metro-sw-marginals", metro, phi.e,
+        marginals.pdt_base(metro, phi, m.Dp, m.Cp), phi.c, 0, True, True))
+    route = phi.e > 0.0
+    tag_rows.append(_tagged_nbr_row(
+        "metro-sw", metro, route,
+        route & (m.pdt[:, :, None, :] > m.pdt[:, :, :, None] + engine.BLOCK_EPS)))
+    bsr_rows.append(_bsr_row("metro-sw-ladder", metro, cands.e,
+                             *traffic.chain_inputs(metro, cands), 1))
+    del cands, fl, m
+    # metro-geant V=1000: the widest block rows (BD=27)
+    geant = network.metro_instance("geant", 1000)
+    gphi = gp.init_phi(geant)
+    bsr_rows.append(_bsr_row("metro-geant-traffic", geant, gphi.e,
+                             *traffic.chain_inputs(geant, gphi), 1))
+    # congested sw-queue: a 10-iteration iterate's ladder, three members
+    # made loopy (the latch and the cap), and stale-marginal tagged inputs
+    hot = network.with_sparse(network.table_ii_instance("sw-queue", rate_scale=2.0))
+    hphi = gp.solve(hot, alpha=0.1, max_iters=10, patience=10**6, tol=0.0).phi
+    hc, _, _ = engine.ladder_candidates(hot, hphi, 0.1)
+    loopy = hc._replace(e=with_loops(hc.e, hot.r, hot.out_nbr))
+    row = _bsr_row("sw-queue-ladder-loopy", hot, loopy.e,
+                   *traffic.chain_inputs(hot, loopy), 1)
+    require(row["members_at_cap"] >= 1 and row["members_not_finite"] >= 1,
+            "bsr_chain loopy case: one member at the cap, one latched")
+    bsr_rows.append(row)
+    stale = marginals.marginals(hot, gp.init_phi(hot)).pdt
+    route = hphi.e > 0.0
+    tag_rows.append(_tagged_nbr_row(
+        "sw-queue-congested", hot, route,
+        route & (stale[:, :, None, :] > stale[:, :, :, None] + engine.BLOCK_EPS)))
+    ops.reset_launch_counts()
+    return {"bsr_chain": bsr_rows, "tagged_nbr": tag_rows}
+
+
+def phase_metro(ref):
+    """The metro path on the card, held against the reference's solve."""
+    import numpy as np
+    import torch
+    from repro_torch.core import conditions, gp, marginals, network, traffic
+    from repro_torch.kernels import ops
+
+    inst = network.metro_instance("sw", 1000)
+    require(traffic.resolve_solver("auto", inst) == "sparse",
+            "metro-sw V=1000 takes the sparse route")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi0 = gp.init_phi(inst)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t_init, _ = traffic.stage_traffic(inst, phi0)
+    pdt_init = marginals.marginals(inst, phi0).pdt
+    errs = {}
+    for name, got in (("t0", t_init), ("pdt0", pdt_init)):
+        want = torch.from_numpy(ref[name]).to(got.device)
+        require(torch.equal(torch.isfinite(got), torch.isfinite(want)),
+                f"metro {name}: finite entries")
+        errs[name] = rel_err(got, want)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gp.solve(inst, phi0, alpha=0.1, max_iters=int(ref["max_iters"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = min(int(ref["max_iters"]),
+                -(-res.iterations // gp._SOLVE_CHUNK) * gp._SOLVE_CHUNK)
+    hist = res.cost_history.cpu()
+    ref_hist = ref["cost_history"].astype(np.float64)
+    default_rel = _rel_hist(hist, ref_hist) if len(hist) == len(ref_hist) else None
+
+    n_off = int(ref["latch_off_iterations"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = gp.solve(inst, phi0, alpha=0.1, max_iters=n_off, patience=10**6, tol=0.0)
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t0
+    off_rel = _rel_hist(off.cost_history, ref["latch_off_cost_history"].astype(np.float64))
+    # the cost does not move in float32 over these steps, the strategy does:
+    # hold the card's final strategy (on the out-neighbor lists) to the
+    # reference's, and measure how far the reference's moved from phi0
+    nbr, mask = inst.out_nbr, inst.out_mask
+
+    def on_edges(e):
+        return torch.where(mask, torch.gather(e, -1, nbr.expand(e.shape[:-1] + nbr.shape[-1:])),
+                           0.0)
+
+    want_e = torch.from_numpy(ref["latch_off_phi_e_nbr"]).to(nbr.device)
+    want_c = torch.from_numpy(ref["latch_off_phi_c"]).to(nbr.device)
+    phi_err = max(float((on_edges(off.phi.e) - want_e).abs().max()),
+                  float((off.phi.c - want_c).abs().max()))
+    e0 = on_edges(phi0.e)
+    ref_moved = max(float((want_e - e0).abs().max()), float((want_c - phi0.c).abs().max()))
+    card_moved = max(float((on_edges(off.phi.e) - e0).abs().max()),
+                     float((off.phi.c - phi0.c).abs().max()))
+    resid = float(conditions.sufficiency_residual(inst, res.phi))
+    emit({"phase": "metro", "instance": "metro_instance('sw', 1000)",
+          "V": inst.V, "edges": int(inst.adj.sum()), "A": inst.A, "K1": inst.K1,
+          "NB_BD": list(inst.blk_nbr.shape), "D": inst.max_degree,
+          "init_phi_s": init_s,
+          "t0_max_abs_err": errs["t0"][0], "t0_max_rel_err": errs["t0"][1],
+          "pdt0_max_abs_err": errs["pdt0"][0], "pdt0_max_rel_err": errs["pdt0"][1],
+          "iterations": res.iterations, "reference_iterations": int(ref["iterations"]),
+          "cost_history_max_rel": default_rel, "final_cost": res.final_cost,
+          "sufficiency_residual": resid, "wall_s": wall, "steps_run": steps,
+          "ms_per_step": wall / steps * 1e3, "launches": launches,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "latch_off_iterations": off.iterations,
+          "latch_off_cost_history_max_rel": off_rel,
+          "latch_off_phi_max_abs_err": phi_err,
+          "latch_off_phi_moved": {"reference": ref_moved, "card": card_moved},
+          "latch_off_ms_per_step": off_wall / n_off * 1e3})
+    require(bool(torch.isfinite(hist).all())
+            and res.phi.e.shape == (inst.A, inst.K1, 1000, 1000),
+            "finite costs, strategy of the expected shape")
+    for name in ("t0", "pdt0"):
+        require(errs[name][1] <= 1e-5, f"metro {name} within 1e-5: {errs[name]}")
+    require(res.iterations == int(ref["iterations"]),
+            f"default solve's count {res.iterations} vs {int(ref['iterations'])}")
+    require(default_rel is not None and default_rel <= 1e-5,
+            f"default cost history within 1e-5: {default_rel}")
+    require(off.iterations == n_off, "latch-off count")
+    require(off_rel <= 1e-5, f"latch-off cost history within 1e-5: {off_rel}")
+    require(ref_moved > 10 * PHI_TOL,
+            f"the reference's strategy moves ({ref_moved}), so the check below tells")
+    require(phi_err <= PHI_TOL,
+            f"latch-off final strategy within {PHI_TOL} of the reference: {phi_err}")
+    require(launches["lu_factor"] == launches["chain_solve"] == launches["tagged"] == 0,
+            f"the dense kernels never launch on the metro path: {launches}")
+    require(launches["bsr_chain"] >= 3 * steps and launches["tagged_nbr"] >= steps,
+            f"bsr_chain 3 and tagged_nbr 1 launches per step: {launches}")
+    return launches, off_wall / n_off * 1e3
+
+
+def phase_metro_profile(ms_per_step: float) -> None:
+    """Where a metro step's device time goes (the ``profile`` phase's
+    method, on ``metro_instance("sw", 1000)``)."""
+    from repro_torch.core import gp, network
+
+    inst = network.metro_instance("sw", 1000)
+    phi0 = gp.init_phi(inst)
+    steps = gp._SOLVE_CHUNK
+    kern = device_kernels(lambda: gp.solve(inst, phi0, alpha=0.1, max_iters=steps,
+                                           patience=10**6, tol=0.0))
+    per_step = {k: ms / steps for k, (ms, _) in kern.items()}
+    busy = sum(per_step.values())
+    traced = busy > 0
+    ours = {name: sum(v for k, v in per_step.items() if sym in k)
+            for name, sym in (("bsr_chain", "bsr_chain_kernel"),
+                              ("tagged_nbr", "tagged_nbr_kernel"))}
+    top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
+    emit({"phase": "metro_profile", "steps": steps,
+          "device_ms_per_step": busy if traced else None,
+          "kernels_ms_per_step": ours,
+          "other_ms_per_step": busy - sum(ours.values()),
+          "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
+          "idle_share": 1 - busy / ms_per_step if traced else None,
+          "top": [[k[:80], v] for v, k in top[:10]]})
+
+
 def main() -> int:
     import torch
 
@@ -419,20 +714,29 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     src = os.path.join(HERE, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")) or not os.path.exists(GOLDEN):
+    if (not os.path.isdir(os.path.join(src, "repro_torch"))
+            or not os.path.exists(GOLDEN) or not os.path.exists(GOLDEN_METRO)):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
     import repro_torch  # noqa: F401  (sets the TF32 flags)
 
+    import numpy as np
+
     with open(GOLDEN) as fh:
         ref = json.load(fh)
+    ref_metro = dict(np.load(GOLDEN_METRO))
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
     launches, ms_per_step = phase_solve(ref)
     phase_profile(ms_per_step)
     phase_parity(ref)
+    kernels.update(phase_sparse_kernels())
+    metro_launches, metro_ms_per_step = phase_metro(ref_metro)
+    phase_metro_profile(metro_ms_per_step)
+    # each kernel's launches come from the main path it lies on
+    launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
 
     meta = {
         "lu_factor": ("src/repro_torch/kernels/csrc/batched_lu.cu",
@@ -441,6 +745,10 @@ def main() -> int:
                         "src/repro/kernels/batched_solve.py:462", -1),
         "tagged": ("src/repro_torch/kernels/csrc/tagged.cu",
                    "src/repro/kernels/blocked_sets.py:182", 1),
+        "bsr_chain": ("src/repro_torch/kernels/csrc/bsr_chain.cu",
+                      "src/repro/kernels/sparse_solve.py:217", 2),
+        "tagged_nbr": ("src/repro_torch/kernels/csrc/tagged_nbr.cu",
+                       "src/repro/kernels/sparse_solve.py:256", 0),
     }
     line = []
     for name, (source, replaces, pick) in meta.items():

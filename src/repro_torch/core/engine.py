@@ -1,7 +1,9 @@
 """One GP step: the fused Algorithm-1 iteration, and the chunk loop body.
 
 Port of ``repro.core.engine`` for one device, without the acceleration
-layer (``accel=None``), application masks or telemetry.  Per iteration:
+layer (``accel=None``), application masks or telemetry.  The stage solver
+follows the instance (``traffic.resolve_solver("auto", inst)``).  Per
+iteration, on the dense route (``batched_lu``):
 
   * one batched LU of every (app, stage) system, shared by the traffic
     sweep (trans=1) and the marginal recursion (trans=0);
@@ -11,6 +13,11 @@ layer (``accel=None``), application masks or telemetry.  Per iteration:
     candidates form ONE leading batch dim: one factor launch over
     12·A·K1 matrices and one chain launch over 12·A chains measure every
     candidate's flows at once.
+
+On the sparse route (an instance with a sparse topology at V >= 128, the
+metro path) nothing is factored: the traffic, marginal and ladder chains
+are one ``bsr_chain`` launch each, and the tagged nodes one ``tagged_nbr``
+launch on the out-neighbor lists.
 
 :func:`scan_chunk` advances a :class:`SolveCarry` by a fixed number of
 iterations without reading anything back to the host: the early stop is a
@@ -75,13 +82,22 @@ def blocked_sets(inst: Instance, phi: Phi, pdt: torch.Tensor,
          with dD/dt_q > dD/dt_p ("tagged" nodes).
 
     ``method="bitset"`` runs category 3 through the tagged kernel
-    (``ops.blocked_tagged``); ``"scan"`` is the dense V-round reference.
-    Both give the same least fixed point, bit for bit.
+    (``ops.blocked_tagged``), and upgrades to ``"nbr"`` (bit-equal, O(E)
+    work per round instead of O(V^2 / 32)) where the instance takes the
+    sparse route (``traffic.resolve_solver``);
+    ``"nbr"`` runs it on the padded out-neighbor lists
+    (``ops.blocked_tagged_nbr``); ``"scan"`` is the dense V-round
+    reference.  All give the same least fixed point, bit for bit.
     """
     route = phi.e > 0.0
     worse = pdt[:, :, None, :] > pdt[:, :, :, None] + BLOCK_EPS   # pdt_q > pdt_p
     improper = route & worse
-    if method == "bitset":
+    if method == "bitset" and traffic_mod.resolve_solver("auto", inst) == "sparse":
+        method = "nbr"
+    if method == "nbr":
+        tagged = ops.blocked_tagged_nbr(route, improper, inst.out_nbr,
+                                        inst.out_mask)
+    elif method == "bitset":
         tagged = ops.blocked_tagged(route, improper)
     elif method == "scan":
         tagged = blocked_sets_mod.tagged_scan_dense(route, improper)
@@ -112,7 +128,8 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
     stepsizes, ``residual`` the sufficiency residual of ``phi`` against the
     blocked-masked minimum marginals.
     """
-    fact = traffic_mod.stage_factors(phi.e)
+    solver = traffic_mod.resolve_solver("auto", inst)
+    fact = traffic_mod.stage_factors(phi.e) if solver == "batched_lu" else None
     fl = flows(inst, phi, fact)
     m = marginals(inst, phi, fl, fact)
     bset = blocked_sets(inst, phi, m.pdt)

@@ -57,10 +57,16 @@ def pdt_recursion(inst: Instance, phi: Phi, Dp: torch.Tensor, Cp: torch.Tensor,
 
     ``batched_lu``: one fused reverse chain-solve launch over the (shared)
     stage factors, pdt_k = (I - Phi_k)^-1 (base_k + phi_c_k * pdt_{k+1}),
-    clamped at 0.
+    clamped at 0.  ``sparse``: the same chain by blocked fixed-point sweeps,
+    one launch, no factors.
     """
-    if resolve_solver(solver) == "dense":
+    solver = resolve_solver(solver, inst)
+    if solver == "dense":
         return _per_app_dense(inst, Dp, Cp, phi.e, phi.c)
+    if solver == "sparse":
+        return ops.sparse_chain_solve(phi.e, pdt_base(inst, phi, Dp, Cp), phi.c,
+                                      inst.blk_nbr, inst.blk_mask,
+                                      trans=0, reverse=True, clamp=True)
     if fact is None:
         fact = stage_factors(phi.e)
     return ops.fused_chain_solve(fact, pdt_base(inst, phi, Dp, Cp), phi.c,

@@ -9,16 +9,19 @@ as a dataclass of tensors on one device.
 The topology builders are numpy only.  Each adds its nodes in label order,
 so the adjacency matrices equal the reference's (which builds networkx
 graphs and relabels them in insertion order) without relabelling.  The
-random draws of :func:`build_instance` and :func:`small_world` make the same
-``numpy.random.default_rng`` calls in the same order, so every field is bit
-for bit the reference's.
+random draws of :func:`build_instance`, :func:`small_world` and
+:func:`metro_geant` make the same ``numpy.random.default_rng`` calls in
+the same order, so every field is bit for bit the reference's.
 
-The sparse-topology fields of the reference (neighbor lists, partition,
-block lists) belong to the metro path and are not ported yet.
+The sparse topology of the metro path (padded neighbor lists, the BFS
+partition and the block-level neighbor lists of the blocked stage
+systems) is numpy too, bit-equal to the reference's, and rides on the
+:class:`Instance` as optional tensors (:func:`with_sparse`).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Union
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import costs
+from repro_torch.kernels.sparse_solve import SPARSE_BLOCK
 
 # Cost-family identifiers (match repro_torch.core.costs).
 LINEAR = costs.LINEAR
@@ -66,6 +70,18 @@ class Instance:
     dst: torch.Tensor           # (A,) int64 destination node d_a
     n_tasks: torch.Tensor       # (A,) int64 |T_a|
     stage_mask: torch.Tensor    # (A, K1) bool, valid stages k <= |T_a|
+    # --- sparse topology (optional, attached by ``with_sparse``) ---
+    # Padded neighbor lists: row i lists its out-/in-neighbors in columns
+    # 0..deg-1; masked columns point at i itself (a safe gather target).
+    out_nbr: Optional[torch.Tensor] = None    # (V, D) int64
+    out_mask: Optional[torch.Tensor] = None   # (V, D) bool
+    in_nbr: Optional[torch.Tensor] = None     # (V, D) int64
+    in_mask: Optional[torch.Tensor] = None    # (V, D) bool
+    node_part: Optional[torch.Tensor] = None  # (V,) int64 BFS routing-block id
+    # Block-level neighbor lists of the SPARSE_BLOCK x SPARSE_BLOCK blocked
+    # stage systems (symmetrized: one structure serves Phi and Phi^T).
+    blk_nbr: Optional[torch.Tensor] = None    # (NB, BD) int64
+    blk_mask: Optional[torch.Tensor] = None   # (NB, BD) bool
 
     @property
     def V(self) -> int:
@@ -82,6 +98,16 @@ class Instance:
     @property
     def device(self) -> torch.device:
         return self.adj.device
+
+    @property
+    def has_sparse(self) -> bool:
+        """Whether the sparse-topology fields are attached (``with_sparse``)."""
+        return self.out_nbr is not None
+
+    @property
+    def max_degree(self) -> int:
+        """Neighbor-list pad width D (0 when no sparse topology attached)."""
+        return int(self.out_nbr.shape[-1]) if self.has_sparse else 0
 
     def degenerate_mask(self) -> torch.Tensor:
         """(A, K1, V) bool: True where phi must sum to 0 (eq. (1) lower branch).
@@ -203,6 +229,24 @@ def small_world(n: int = 100, seed: int = 3,
     return adj
 
 
+def metro_geant(n: int = 300, seed: int = 11) -> np.ndarray:
+    """GEANT-like ring + chords construction scaled to metro node counts.
+
+    Same shape as :func:`geant` (backbone ring + n/2 random chords, average
+    degree 3) at any ``n``; the chords are drawn as the reference draws
+    them, so the adjacency is the reference's.
+    """
+    adj = _to_directed(n, [(i, (i + 1) % n) for i in range(n)])
+    rng = np.random.default_rng(seed)
+    added = 0
+    while added < n // 2:                                 # chords
+        u, v = rng.integers(0, n, size=2)
+        if u != v and not adj[u, v]:
+            adj[u, v] = adj[v, u] = True
+            added += 1
+    return adj
+
+
 TOPOLOGIES = {
     "connected-er": lambda: connected_er(20, 40, seed=0),
     "balanced-tree": lambda: balanced_tree(2, 3),
@@ -212,6 +256,131 @@ TOPOLOGIES = {
     "geant": geant,
     "sw": small_world,
 }
+
+
+# ---------------------------------------------------------------------------
+# Sparse topology (padded neighbor lists + graph partition), numpy only
+# ---------------------------------------------------------------------------
+
+def sparse_neighbors(adj: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Padded neighbor lists of a dense adjacency.
+
+    Returns ``(out_nbr, out_mask, in_nbr, in_mask)``, each ``(V, D)`` with
+    ``D = max(1, max degree)``: row ``i`` lists its out-(in-)neighbors in
+    the leading columns; masked columns point at ``i`` itself so gathers
+    through them stay in bounds (and are zeroed by the mask).
+    """
+    adj = np.asarray(adj, dtype=bool)
+    V = adj.shape[0]
+    D = max(1, int(max(adj.sum(1).max(initial=0), adj.sum(0).max(initial=0))))
+    out_nbr = np.tile(np.arange(V, dtype=np.int32)[:, None], (1, D))
+    in_nbr = out_nbr.copy()
+    out_mask = np.zeros((V, D), dtype=bool)
+    in_mask = np.zeros((V, D), dtype=bool)
+    for i in range(V):
+        js = np.nonzero(adj[i])[0]
+        out_nbr[i, : len(js)] = js
+        out_mask[i, : len(js)] = True
+        js = np.nonzero(adj[:, i])[0]
+        in_nbr[i, : len(js)] = js
+        in_mask[i, : len(js)] = True
+    return out_nbr, out_mask, in_nbr, in_mask
+
+
+def graph_partition(adj: np.ndarray) -> np.ndarray:
+    """(V,) int32 routing-block labels: BFS discovery order packed into
+    groups of ``SPARSE_BLOCK`` nodes.
+
+    For the ring-labelled metro builders the labels coincide with the
+    contiguous index blocks ``i // block`` that the blocked kernels use;
+    the labels themselves are diagnostic metadata.
+    """
+    adj = np.asarray(adj, dtype=bool)
+    V = adj.shape[0]
+    seen = np.zeros(V, dtype=bool)
+    order = []
+    for s in range(V):
+        if seen[s]:
+            continue
+        seen[s] = True
+        queue = collections.deque([s])
+        while queue:
+            u = queue.popleft()
+            order.append(u)
+            for v in np.nonzero(adj[u])[0]:
+                if not seen[v]:
+                    seen[v] = True
+                    queue.append(int(v))
+    part = np.empty(V, dtype=np.int32)
+    part[np.asarray(order)] = np.arange(V, dtype=np.int32) // SPARSE_BLOCK
+    return part
+
+
+def block_neighbors(adj: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Block-level neighbor lists of the partition-blocked stage systems.
+
+    Nodes are grouped into ``NB = ceil(V / SPARSE_BLOCK)`` contiguous index
+    blocks; block pair (I, J) is a neighbor iff an edge in either direction
+    touches the (I, J) submatrix (symmetrized, so one structure serves
+    ``Phi`` and ``Phi^T``).  Returns ``(blk_nbr, blk_mask)``, each ``(NB, BD)`` with
+    ``BD`` the largest block degree; masked columns point at ``I`` itself.
+    """
+    adj = np.asarray(adj, dtype=bool)
+    V = adj.shape[0]
+    bs = SPARSE_BLOCK
+    NB = -(-V // bs)
+    ap = np.zeros((NB * bs, NB * bs), dtype=bool)
+    ap[:V, :V] = adj
+    touch = ap.reshape(NB, bs, NB, bs).any(axis=(1, 3))
+    touch = touch | touch.T
+    BD = max(1, int(touch.sum(1).max(initial=0)))
+    blk_nbr = np.tile(np.arange(NB, dtype=np.int32)[:, None], (1, BD))
+    blk_mask = np.zeros((NB, BD), dtype=bool)
+    for i in range(NB):
+        js = np.nonzero(touch[i])[0]
+        blk_nbr[i, : len(js)] = js
+        blk_mask[i, : len(js)] = True
+    return blk_nbr, blk_mask
+
+
+def with_sparse(inst: Instance) -> Instance:
+    """Attach the sparse topology fields to an instance.
+
+    The dense fields are untouched; the neighbor lists (int64) and masks
+    (bool) are built on the host from ``inst.adj`` and placed on the
+    instance's device, where the sparse stage solver and the
+    neighbor-list tagged sweep read them.
+    """
+    adj = inst.adj.cpu().numpy()
+    out_nbr, out_mask, in_nbr, in_mask = sparse_neighbors(adj)
+    part = graph_partition(adj)
+    blk_nbr, blk_mask = block_neighbors(adj)
+    dev = inst.device
+
+    def t(x, dtype):
+        return torch.from_numpy(np.asarray(x, dtype=dtype)).to(dev)
+
+    return dataclasses.replace(
+        inst,
+        out_nbr=t(out_nbr, np.int64), out_mask=t(out_mask, bool),
+        in_nbr=t(in_nbr, np.int64), in_mask=t(in_mask, bool),
+        node_part=t(part, np.int64),
+        blk_nbr=t(blk_nbr, np.int64), blk_mask=t(blk_mask, bool),
+    )
+
+
+def without_sparse(inst: Instance) -> Instance:
+    """Strip the sparse topology fields (back to the dense route)."""
+    return dataclasses.replace(
+        inst, out_nbr=None, out_mask=None, in_nbr=None, in_mask=None,
+        node_part=None, blk_nbr=None, blk_mask=None,
+    )
+
+
+def n_edges(inst: Instance) -> int:
+    """Directed edge count |E|."""
+    return int(inst.adj.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -322,3 +491,26 @@ def table_ii_instance(name: str, seed: int = 0, rate_scale: float = 1.0, *,
         seed=seed,
         device=dev,
     )
+
+
+def metro_instance(topo: str, V: int, *, seed: int = 0,
+                   device: Device = "cuda") -> Instance:
+    """A metro-scale instance on a V-node sparse graph.
+
+    ``topo`` is ``"sw"`` (scaled :func:`small_world`) or ``"geant"``
+    (scaled :func:`metro_geant`).  Parameters follow the Table II sw-queue
+    scenario (three applications).  The sparse topology is attached, which
+    sends the solve down the factorization-free sparse route at V >= 128;
+    ``without_sparse`` strips it.
+    """
+    if topo == "sw":
+        adj = small_world(V, seed=3)
+    elif topo == "geant":
+        adj = metro_geant(V, seed=11)
+    else:
+        raise ValueError(f"unknown metro topology {topo!r} (want 'sw'/'geant')")
+    inst = build_instance(
+        adj, n_apps=3, n_tasks=2, n_sources=3,
+        link_mean=20.0, comp_mean=20.0, seed=seed, device=device,
+    )
+    return with_sparse(inst)

@@ -6,12 +6,15 @@ satisfy the linear fixed points
     t(a,0) = Phi_0^T t(a,0) + r(a)
     t(a,k) = Phi_k^T t(a,k) + g(a,k-1),       g(a,k) = t(a,k) * phi_c(a,k).
 
-``solver="batched_lu"`` (what ``"auto"`` resolves to) factors every stage
-system ``I - Phi_k`` in one batched LU (:func:`stage_factors`) and walks
-every chain in one fused chain-solve launch; the same factors serve the
-marginal recursion, which solves the untransposed system.
-``solver="dense"`` keeps the seed's per-stage ``torch.linalg.solve`` as the
-differential reference.
+``solver="batched_lu"`` factors every stage system ``I - Phi_k`` in one
+batched LU (:func:`stage_factors`) and walks every chain in one fused
+chain-solve launch; the same factors serve the marginal recursion, which
+solves the untransposed system.  ``solver="sparse"`` (the metro path) runs
+the factorization-free blocked fixed-point sweeps of
+``ops.sparse_chain_solve`` on the instance's sparse topology.  ``"auto"``
+picks ``"sparse"`` for an instance that carries a sparse topology at
+V >= :data:`SPARSE_MIN_V`, else ``"batched_lu"``.  ``solver="dense"`` keeps
+the seed's per-stage ``torch.linalg.solve`` as the differential reference.
 
 Every function here accepts extra leading dims in front of ``(A, K1, ...)``
 on the strategy: the stepsize ladder evaluates its 12 candidates as one
@@ -28,7 +31,12 @@ from repro_torch.core import costs
 from repro_torch.core.network import Instance
 from repro_torch.kernels import ops
 
-SOLVERS = ("batched_lu", "dense")
+SOLVERS = ("batched_lu", "sparse", "dense")
+
+# Minimum node count for "auto" to take the sparse route when the instance
+# carries a sparse topology (the reference's threshold; the metro instances
+# sit well above it, the Table II ones below).
+SPARSE_MIN_V = 128
 
 
 class Phi(NamedTuple):
@@ -61,17 +69,22 @@ def _solve_stage(phi_e_k: torch.Tensor, inject: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve(mat, inject.unsqueeze(-1)).squeeze(-1)
 
 
-def resolve_solver(solver: str) -> str:
-    """Resolve ``"auto"``: always ``"batched_lu"``, the kernel path.
+def resolve_solver(solver: str, inst: Instance) -> str:
+    """Resolve ``"auto"``: ``"sparse"`` when ``inst`` carries a sparse
+    topology and ``inst.V >= SPARSE_MIN_V``, else ``"batched_lu"``.
 
-    On a CUDA tensor it launches the hand-written kernels, on a CPU tensor
-    their plain versions.  (The reference's size crossover ``AUTO_MIN_V``
-    was measured on a CPU and says nothing about this card.)
+    Both are kernel paths: on CUDA tensors they launch the hand-written
+    kernels, on CPU tensors their plain versions.  (The reference's dense
+    crossover ``AUTO_MIN_V`` was measured on a CPU and says nothing about
+    this card.)  ``"sparse"`` on an instance without a topology raises.
     """
     if solver == "auto":
-        return "batched_lu"
+        return "sparse" if inst.has_sparse and inst.V >= SPARSE_MIN_V else "batched_lu"
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; want 'auto' or one of {SOLVERS}")
+    if solver == "sparse" and not inst.has_sparse:
+        raise ValueError("instance carries no sparse topology; attach one with "
+                         "network.with_sparse(inst) before solver='sparse'")
     return solver
 
 
@@ -106,7 +119,12 @@ def stage_traffic(inst: Instance, phi: Phi, fact: Optional[ops.BatchedLU] = None
     No clamping: the map phi -> t stays linear; loopy candidates' divergent
     solutions are rejected by :func:`traffic_is_valid` instead.
     """
-    if resolve_solver(solver) == "batched_lu":
+    solver = resolve_solver(solver, inst)
+    if solver == "sparse":
+        t = ops.sparse_chain_solve(phi.e, *chain_inputs(inst, phi), inst.blk_nbr,
+                                   inst.blk_mask, trans=1)
+        return t, t * phi.c
+    if solver == "batched_lu":
         if fact is None:
             fact = stage_factors(phi.e)
         t = ops.fused_chain_solve(fact, *chain_inputs(inst, phi), trans=1)

@@ -1,13 +1,16 @@
 """Public wrappers around the kernels, over any leading batch dims.
 
-Port of the batched-LU and blocked-set parts of ``repro.kernels.ops``.
+Port of the batched-LU, sparse and blocked-set parts of
+``repro.kernels.ops``.
 Leading dims are flattened into the kernel's batch and restored on return,
 so the GP engine hands over ``(A, K1, V, V)`` stacks for the iterate and
 ``(ladder, A, K1, V, V)`` stacks for the stepsize ladder alike, each in ONE
 launch.  Every wrapper is per-member: no wrapper reduces across members.
 
 The factors are unpivoted (identity permutation), so :class:`BatchedLU`
-carries the packed ``lu`` and the per-member ``ok`` flag only.
+carries the packed ``lu`` and the per-member ``ok`` flag only.  The sparse
+route (:func:`sparse_chain_solve`, :func:`blocked_tagged_nbr`) factors
+nothing: the instance's block lists take the factors' place.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ import torch
 
 from repro_torch.kernels import batched_solve as _bs
 from repro_torch.kernels import blocked_sets as _bset
+from repro_torch.kernels import sparse_solve as _ss
 
 # The kernel wrappers whose ``launches`` counters record the main path.
 KERNELS = {
     "lu_factor": _bs.lu_factor,
     "chain_solve": _bs.chain_solve,
     "tagged": _bset.tagged,
+    "bsr_chain": _ss.chain_solve_bsr,
+    "tagged_nbr": _ss.tagged_nbr,
 }
 
 
@@ -96,3 +102,49 @@ def blocked_tagged(route: torch.Tensor, improper: torch.Tensor) -> torch.Tensor:
 
     words = _bset.tagged(packed(route), packed(improper))
     return _bset.unpack_bits(words, V).reshape(lead + (V,))
+
+
+# ---------------------------------------------------------------------------
+# Sparse route: factorization-free stage solves and the neighbor-list sweep
+# ---------------------------------------------------------------------------
+
+def sparse_chain_solve(phi_e: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
+                       blk_nbr: torch.Tensor, blk_mask: torch.Tensor, *,
+                       trans: int = 0, reverse: bool = False,
+                       clamp: bool = False) -> torch.Tensor:
+    """Sparse drop-in for :func:`fused_chain_solve`: the whole stage chain
+
+        x_k = (I - M_k)^{-1} (base_k + mult_k * x_prev),
+        M_k = Phi_k (trans=0) or Phi_k^T (trans=1),
+
+    by blocked fixed-point sweeps over the nonzero 32 x 32 blocks: exact
+    for loop-free (nilpotent) strategies, latched at +inf for divergent
+    loopy candidates.  phi_e (..., K, V, V), base/mult (..., K, V), the
+    instance's block lists blk_nbr/blk_mask (NB, BD) -> x (..., K, V);
+    every chain in one launch.
+    """
+    K, V = base.shape[-2:]
+    M = phi_e.reshape(-1, K, V, V)
+    if trans:
+        M = M.transpose(-1, -2)
+    bvals = _ss.block_values(M, blk_nbr, blk_mask)
+    x = _ss.chain_solve_bsr(bvals, blk_nbr, base.reshape(-1, K, V).contiguous(),
+                            mult.reshape(-1, K, V).contiguous(),
+                            reverse=reverse, clamp=clamp)
+    return x.reshape(base.shape)
+
+
+def blocked_tagged_nbr(route: torch.Tensor, improper: torch.Tensor,
+                       nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Neighbor-list variant of :func:`blocked_tagged`: route/improper
+    (..., V, V) bool, nbr/mask (V, D) -> tagged (..., V) bool, bit-equal to
+    it (the same monotone fixed point), at O(E) work per round.
+
+    Both matrices are gathered onto the out-neighbor lists once; one kernel
+    launch iterates every member to its fixed point.
+    """
+    lead, V = route.shape[:-2], route.shape[-1]
+    idx = nbr.expand(route.reshape(-1, V, V).shape[:1] + nbr.shape)
+    rv = torch.gather(route.reshape(-1, V, V), -1, idx) & mask
+    iv = torch.gather(improper.reshape(-1, V, V), -1, idx)
+    return _ss.tagged_nbr(rv, iv, nbr).reshape(lead + (V,))

@@ -1,0 +1,279 @@
+"""Sparse stage-system solves and the neighbor-list tagged sweep.
+
+Port of ``repro.kernels.sparse_solve``.  For a loop-free strategy the
+stage matrix ``M = Phi_k`` (trans=0) or ``Phi_k^T`` (trans=1) restricted
+to its support is nilpotent (routing follows a DAG), so the fixed-point
+sweep
+
+    x <- b + M x
+
+settles EXACTLY after (DAG depth + 1) sweeps, and the ``x != prev`` exit
+stops precisely at the solution of ``(I - M) x = b``.  Loopy ladder
+candidates make it diverge: values past 1e12 (or non-finite) latch at
++inf, and ``traffic_is_valid`` rejects the member.  No stage is factored.
+
+  * :func:`block_values` gathers the nonzero 32 x 32 blocks of a stage
+    matrix stack (the BSR layout of ``network.block_neighbors``);
+  * :func:`chain_solve_bsr` walks every member's K stages by blocked sweeps:
+    ``csrc/bsr_chain.cu`` for CUDA tensors, :func:`chain_solve_bsr_plain`
+    for CPU tensors;
+  * :func:`tagged_nbr` is the blocked sets' category-3 fixed point on the
+    padded out-neighbor lists: ``csrc/tagged_nbr.cu`` for CUDA tensors,
+    :func:`tagged_nbr_plain` for CPU tensors.
+
+One sweep sums in a fixed order that the kernel and the plain version
+share: per 32 x 32 block, the 32 products of a row are rounded one by one
+and summed by the same pairwise tree (halves, then quarters, ...), and the
+block sums are added to ``b`` in the order of the block list, every
+operation rounded once (no fused multiply-add).  So the two agree bit for
+bit and stop after the same number of sweeps, and the sweep count is a
+function of the data, not of the device.
+
+``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+# Edge length of the partition blocks (re-exported by ``network``); equal to
+# the warp width, so one lane owns one row of a block.
+SPARSE_BLOCK = 32
+
+# Iterates beyond this magnitude are frozen at +inf: the member has
+# diverged (every physical traffic or marginal is orders smaller), and
+# freezing makes the sweep loop exit instead of running to the cap.
+_DIVERGE = 1e12
+
+
+def block_values(M: torch.Tensor, blk_nbr: torch.Tensor,
+                 blk_mask: torch.Tensor) -> torch.Tensor:
+    """Gather the nonzero 32 x 32 blocks of a stage matrix stack.
+
+    M (..., V, V), blk_nbr/blk_mask (NB, BD) -> bvals (..., NB, BD, bs, bs)
+    with ``bvals[..., I, d] = M[rows of I, cols of blk_nbr[I, d]]`` (zero
+    where masked), bs = SPARSE_BLOCK.  V is zero-padded to NB * bs.
+    """
+    NB, BD = blk_nbr.shape
+    bs = SPARSE_BLOCK
+    V = M.shape[-1]
+    Vp = NB * bs
+    if Vp != V:
+        M = F.pad(M, (0, Vp - V, 0, Vp - V))
+    Mb = M.reshape(M.shape[:-2] + (NB, bs, NB, bs)).transpose(-3, -2)
+    rows = torch.arange(NB, device=M.device)[:, None]
+    bvals = Mb[..., rows, blk_nbr, :, :]                  # (..., NB, BD, bs, bs)
+    return torch.where(blk_mask[:, :, None, None], bvals, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# chain_solve_bsr: kernel + plain version
+# ---------------------------------------------------------------------------
+
+def _tree_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis (a power of two) by halves, as the kernel does."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return p[..., 0]
+
+
+def _bsr_sweep(bvals_k, blk_nbr, b, x):
+    """y = b + sum_d bvals[I, d] @ x[block blk_nbr[I, d]], then the latch.
+
+    bvals_k (B, NB, BD, bs, bs), b/x (B, Vp) -> y (B, Vp).
+    """
+    B, NB, BD, bs, _ = bvals_k.shape
+    xg = x.reshape(B, NB, bs)[:, blk_nbr]                 # (B, NB, BD, bs)
+    s = _tree_sum(bvals_k * xg[:, :, :, None, :])         # (B, NB, BD, bs)
+    y = b.reshape(B, NB, bs)
+    for d in range(BD):
+        y = y + s[:, :, d]
+    y = y.reshape(B, NB * bs)
+    bad = ~torch.isfinite(y) | (y.abs() > _DIVERGE)
+    return torch.where(bad, torch.inf, y)
+
+
+def chain_solve_bsr_plain(bvals: torch.Tensor, blk_nbr: torch.Tensor,
+                          base: torch.Tensor, mult: torch.Tensor, *,
+                          reverse: bool = False, clamp: bool = False,
+                          with_sweeps: bool = False):
+    """Plain blocked chain solve: the reference's loop, in PyTorch.
+
+    bvals (B, K, NB, BD, bs, bs), blk_nbr (NB, BD), base/mult (B, K, V) ->
+    x (B, K, V) (and the (B, K) int32 sweep counts with ``with_sweeps``).
+    Per stage: the first sweep from 0 against ``prev = inf``, then sweeps
+    until no entry changed or ``V + 2`` sweeps ran; every member sweeps
+    until the last one settles (a settled member stays settled), and the
+    exit test is read on the host once per sweep.
+    """
+    B, K, NB, BD, bs = bvals.shape[:5]
+    V = base.shape[-1]
+    Vp = NB * bs
+    cap = V + 2
+    base = F.pad(base, (0, Vp - V))
+    mult = F.pad(mult, (0, Vp - V))
+    dev = base.device
+    out = torch.empty((B, K, Vp), dtype=torch.float32, device=dev)
+    sweeps = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    x = torch.zeros((B, Vp), dtype=torch.float32, device=dev)
+    for k in (range(K - 1, -1, -1) if reverse else range(K)):
+        b = base[:, k] + mult[:, k] * x
+        x = _bsr_sweep(bvals[:, k], blk_nbr, b, torch.zeros_like(b))
+        live = (x != torch.inf).any(dim=-1)
+        sweeps[:, k] = 1
+        i = 1
+        while i < cap and bool(live.any()):
+            y = _bsr_sweep(bvals[:, k], blk_nbr, b, x)
+            sweeps[:, k] += live.to(torch.int32)
+            live = live & (y != x).any(dim=-1)
+            x = y
+            i += 1
+        if clamp:
+            x = torch.maximum(x, x.new_zeros(()))
+        out[:, k] = x
+    out = out[..., :V]
+    return (out, sweeps) if with_sweeps else out
+
+
+def _check_cuda(x: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if x.dtype != dtype or x.ndim != ndim or not x.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {ndim}-dim {dtype} tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+
+
+def chain_solve_bsr(bvals: torch.Tensor, blk_nbr: torch.Tensor,
+                    base: torch.Tensor, mult: torch.Tensor, *,
+                    reverse: bool = False, clamp: bool = False,
+                    with_sweeps: bool = False):
+    """Blocked-sparse fused chain solve: bvals (B, K, NB, BD, bs, bs) from
+    :func:`block_values`, blk_nbr (NB, BD), base/mult (B, K, V) ->
+    x (B, K, V), walking k forward (or backward with ``reverse``):
+
+        x_k = (I - M_k)^{-1} (base_k + mult_k * x_prev),   x_prev(start) = 0,
+
+    optionally clamped at 0.  CUDA tensors: one launch of
+    ``csrc/bsr_chain.cu``, one block per member.  CPU tensors: the plain
+    version.  ``with_sweeps=True`` also returns the (B, K) int32 sweep
+    counts.
+    """
+    if bvals.device.type == "cpu":
+        return chain_solve_bsr_plain(bvals, blk_nbr, base, mult, reverse=reverse,
+                                     clamp=clamp, with_sweeps=with_sweeps)
+    _check_cuda(bvals, "chain_solve_bsr bvals", torch.float32, 6)
+    _check_cuda(blk_nbr, "chain_solve_bsr blk_nbr", torch.int64, 2)
+    _check_cuda(base, "chain_solve_bsr base", torch.float32, 3)
+    _check_cuda(mult, "chain_solve_bsr mult", torch.float32, 3)
+    B, K, NB, BD, bs, bs2 = bvals.shape
+    V = base.shape[-1]
+    if (bs, bs2) != (SPARSE_BLOCK, SPARSE_BLOCK) or blk_nbr.shape != (NB, BD) \
+            or base.shape != (B, K, V) or mult.shape != (B, K, V) \
+            or not (NB - 1) * bs < V <= NB * bs:
+        raise ValueError(
+            f"chain_solve_bsr: shapes bvals {tuple(bvals.shape)}, blk_nbr "
+            f"{tuple(blk_nbr.shape)}, base {tuple(base.shape)}, mult "
+            f"{tuple(mult.shape)} do not agree")
+    if any(t.device != bvals.device for t in (blk_nbr, base, mult)):
+        raise ValueError("chain_solve_bsr: all inputs must be on one device")
+    if bvals.data_ptr() % 16:
+        raise ValueError("chain_solve_bsr: bvals must be 16-byte aligned "
+                         "(the kernel reads it as float4)")
+    smem = 4 * (3 * NB * bs + NB * BD)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"chain_solve_bsr: NB={NB}, BD={BD} needs {smem} B of "
+                         f"shared memory, above {_build.SMEM_LIMIT} B")
+    out = torch.empty_like(base)
+    sweeps = torch.empty((B, K), dtype=torch.int32, device=base.device)
+    fn = _build.function("bsr_chain", "repro_bsr_chain",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(bvals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(bvals.data_ptr(), blk_nbr.data_ptr(), base.data_ptr(),
+                mult.data_ptr(), out.data_ptr(), sweeps.data_ptr(),
+                B, K, NB, BD, V, int(reverse) | (int(clamp) << 1), stream)
+    _build.check("bsr_chain", rc, "chain_solve_bsr")
+    chain_solve_bsr.launches += 1
+    return (out, sweeps) if with_sweeps else out
+
+
+chain_solve_bsr.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tagged_nbr: kernel + plain version
+# ---------------------------------------------------------------------------
+
+def tagged_nbr_plain(route_vals: torch.Tensor, improper_vals: torch.Tensor,
+                     nbr: torch.Tensor, *, with_rounds: bool = False):
+    """Plain neighbor-list tagged sweep: the reference's loop, in PyTorch.
+
+    route_vals/improper_vals (B, V, D) bool (``route``/``improper`` gathered
+    onto the padded out-neighbor lists, masked columns False), nbr (V, D)
+    -> tagged (B, V) bool, the monotone fixed point of
+
+        tagged[p] = exists d: route[p, d] and (improper[p, d] or
+                                               tagged[nbr[p, d]])
+
+    from ``tagged = seed`` in at most V + 1 rounds (the exit test read on
+    the host each round).  ``with_rounds=True`` also returns the (B,) int32
+    round counts, the seed counted as round 1.
+    """
+    V = route_vals.shape[-2]
+    seed = (route_vals & improper_vals).any(dim=-1)
+    t = seed
+    live = seed.any(dim=-1)
+    rounds = torch.ones(seed.shape[0], dtype=torch.int32, device=seed.device)
+    i = 1
+    while i < V + 1 and bool(live.any()):
+        hit = seed | (route_vals & t[:, nbr]).any(dim=-1)
+        rounds += live.to(torch.int32)
+        live = live & (hit != t).any(dim=-1)
+        t = hit
+        i += 1
+    return (t, rounds) if with_rounds else t
+
+
+def tagged_nbr(route_vals: torch.Tensor, improper_vals: torch.Tensor,
+               nbr: torch.Tensor, *, with_rounds: bool = False):
+    """Neighbor-list tagged fixed point: (B, V, D) bool x2, nbr (V, D) int64
+    -> (B, V) bool.
+
+    CUDA tensors: one launch of ``csrc/tagged_nbr.cu``, one block per
+    member.  CPU tensors: :func:`tagged_nbr_plain`.
+    """
+    if route_vals.device.type == "cpu":
+        return tagged_nbr_plain(route_vals, improper_vals, nbr,
+                                with_rounds=with_rounds)
+    _check_cuda(route_vals, "tagged_nbr route_vals", torch.bool, 3)
+    _check_cuda(improper_vals, "tagged_nbr improper_vals", torch.bool, 3)
+    _check_cuda(nbr, "tagged_nbr nbr", torch.int64, 2)
+    B, V, D = route_vals.shape
+    if improper_vals.shape != (B, V, D) or nbr.shape != (V, D):
+        raise ValueError(f"tagged_nbr: shapes {tuple(route_vals.shape)}, "
+                         f"{tuple(improper_vals.shape)}, nbr {tuple(nbr.shape)} "
+                         f"do not agree")
+    if any(t.device != route_vals.device for t in (improper_vals, nbr)):
+        raise ValueError("tagged_nbr: all inputs must be on one device")
+    smem = 4 * V * (-(-D // 32)) + 3 * V
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"tagged_nbr: V={V}, D={D} needs {smem} B of shared "
+                         f"memory, above {_build.SMEM_LIMIT} B")
+    out = torch.empty((B, V), dtype=torch.bool, device=route_vals.device)
+    rounds = torch.empty((B,), dtype=torch.int32, device=route_vals.device)
+    fn = _build.function("tagged_nbr", "repro_tagged_nbr",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(route_vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(route_vals.data_ptr(), improper_vals.data_ptr(), nbr.data_ptr(),
+                out.data_ptr(), rounds.data_ptr(), B, V, D, stream)
+    _build.check("tagged_nbr", rc, "tagged_nbr")
+    tagged_nbr.launches += 1
+    return (out, rounds) if with_rounds else out
+
+
+tagged_nbr.launches = 0

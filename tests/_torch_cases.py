@@ -52,3 +52,25 @@ def stall_stop(costs, patience=40, max_iters=400):
         if stall >= patience or i >= max_iters:
             return i, improved
     return None, improved
+
+
+def with_loops(phi_e, r, out_nbr):
+    """Ladder candidates (L, A, K1, V, V) with routing loops put into three
+    members, the inputs the sparse chain's divergence latch and sweep cap
+    are for.
+
+    At application 0's largest source i and its first neighbor j, stage 0
+    of rungs 1, 2 and 3 routes all of rows i and j around the 2-cycle
+    i -> j -> i with gains 1 (never settles: runs to the cap), 0.5 (settles
+    geometrically) and 1e3 (diverges past 1e12 and latches at +inf).
+    Returns a new tensor.
+    """
+    e = phi_e.clone()
+    i = int(r[0].argmax())
+    j = int(out_nbr[i, 0])
+    for rung, gain in ((1, 1.0), (2, 0.5), (3, 1e3)):
+        e[rung, 0, 0, i, :] = 0.0
+        e[rung, 0, 0, j, :] = 0.0
+        e[rung, 0, 0, i, j] = gain
+        e[rung, 0, 0, j, i] = 1.0
+    return e

@@ -8,10 +8,15 @@ JAX, so it runs on a machine with PyTorch and CUDA alone:
 
 (``--noconftest``: the suite's conftest imports JAX.)  The kernels are
 built from ``src/repro_torch/kernels/csrc`` with ``nvcc`` at first use.
-Tolerances: 1e-5 relative for the float32 kernels (they sum in another
-order than the plain versions and fuse multiply-adds); bit-exact for the
-tagged bitsets.
+Tolerances: 1e-5 relative for the dense float32 kernels (they sum in
+another order than the plain versions and fuse multiply-adds); bit-exact
+for the tagged bitsets, the neighbor-list tagged sweep and the sweep
+counts of the blocked chain solve, whose kernel and plain version share
+one summation order (its values are held to 1e-5 with the same +inf
+entries, and their largest difference is printed).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -21,8 +26,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import gp, network  # noqa: E402
 from repro_torch.kernels import batched_solve as bs  # noqa: E402
 from repro_torch.kernels import blocked_sets as bset  # noqa: E402
+from repro_torch.core import engine, marginals, traffic  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from _torch_cases import random_bits, stage_mats  # noqa: E402
+from repro_torch.kernels import sparse_solve as ss  # noqa: E402
+from _torch_cases import random_bits, stage_mats, with_loops  # noqa: E402
+
+METRO_GOLDEN = os.path.join(os.path.dirname(__file__), "data",
+                            "torch_ref_metro_sw1000.npz")
 
 pytestmark = pytest.mark.gpu
 
@@ -139,3 +149,104 @@ def test_solve_on_card_matches_cpu(cuda):
     assert _rel(on_card.cost_history, on_cpu.cost_history) <= 1e-5
     assert counts["lu_factor"] >= 2 * 40 and counts["chain_solve"] >= 3 * 40
     assert counts["tagged"] >= 40
+
+
+def _sparse_cases(cuda):
+    """(label, instance, phi) on the card: congested Table II iterates
+    (rate_scale 2, 10 iterations of the card's solve) and metro-sw V=1000
+    at ``init_phi``."""
+    out = []
+    for name in ("geant", "sw-queue"):
+        inst = network.with_sparse(network.table_ii_instance(name, rate_scale=2.0))
+        phi = gp.solve(inst, alpha=0.1, max_iters=10, patience=10**6, tol=0.0).phi
+        out.append((name, inst, phi))
+    metro = network.metro_instance("sw", 1000)
+    out.append(("metro-sw-1000", metro, gp.init_phi(metro)))
+    return out
+
+
+def _check_bsr(inst, phi_e, base, mult, trans, **kw):
+    K, V = base.shape[-2:]
+    M = phi_e.reshape(-1, K, V, V)
+    M = M.transpose(-1, -2) if trans else M
+    bvals = ss.block_values(M, inst.blk_nbr, inst.blk_mask).contiguous()
+    b2, m2 = base.reshape(-1, K, V).contiguous(), mult.reshape(-1, K, V).contiguous()
+    got, sw = ss.chain_solve_bsr(bvals, inst.blk_nbr, b2, m2, with_sweeps=True, **kw)
+    want, sw_want = ss.chain_solve_bsr_plain(bvals, inst.blk_nbr, b2, m2,
+                                             with_sweeps=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sw, sw_want)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert not torch.isnan(got).any()
+    fin = torch.isfinite(want)
+    if fin.any():
+        assert _rel(got[fin], want[fin]) <= 1e-5
+        print("bsr_chain max abs diff", float((got[fin] - want[fin]).abs().max()))
+    return got, sw
+
+
+def test_bsr_chain_kernel_matches_plain(cuda):
+    for label, inst, phi in _sparse_cases(cuda):
+        fl = traffic.flows(inst, phi, solver="sparse")
+        pdt_b = marginals.pdt_base(inst, phi, traffic.link_marginals(inst, fl.F),
+                                   traffic.comp_marginals(inst, fl.G))
+        _check_bsr(inst, phi.e, *traffic.chain_inputs(inst, phi), 1)
+        _check_bsr(inst, phi.e, pdt_b, phi.c, 0, reverse=True, clamp=True)
+        cands, _, _ = engine.ladder_candidates(inst, phi, 0.1)
+        _check_bsr(inst, cands.e, *traffic.chain_inputs(inst, cands), 1)
+        loopy = cands._replace(e=with_loops(cands.e, inst.r, inst.out_nbr))
+        got, sw = _check_bsr(inst, loopy.e, *traffic.chain_inputs(inst, loopy), 1)
+        A = inst.A
+        assert (sw[A] == inst.V + 2).any(), label
+        assert not torch.isfinite(got[3 * A]).all(), label
+
+
+def test_tagged_nbr_kernel_bit_equal_to_plain(cuda):
+    for label, inst, phi in _sparse_cases(cuda):
+        stale = marginals.marginals(inst, gp.init_phi(inst)).pdt
+        fresh = marginals.marginals(inst, phi).pdt
+        for pdt in (fresh, stale):
+            route = phi.e > 0.0
+            improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
+            V = inst.V
+            r2, i2 = route.reshape(-1, V, V), improper.reshape(-1, V, V)
+            idx = inst.out_nbr.expand((r2.shape[0],) + inst.out_nbr.shape)
+            rv = torch.gather(r2, -1, idx) & inst.out_mask
+            iv = torch.gather(i2, -1, idx)
+            got, rounds = ss.tagged_nbr(rv, iv, inst.out_nbr, with_rounds=True)
+            want, want_rounds = ss.tagged_nbr_plain(rv, iv, inst.out_nbr,
+                                                    with_rounds=True)
+            assert torch.equal(got, want), label
+            assert torch.equal(rounds, want_rounds), label
+            assert torch.equal(got, bset.tagged_scan_dense(r2, i2)), label
+            if V <= 200:   # the bitset kernel holds (Vp, W) words in shared memory
+                assert torch.equal(got, ops.blocked_tagged(r2, i2)), label
+
+
+def test_metro_solve_on_card(cuda):
+    """Two latch-off steps of metro-sw V=1000 through the sparse kernels
+    only, against the reference's history (tests/data, 1e-5)."""
+    ref = np.load(METRO_GOLDEN)
+    inst = network.metro_instance("sw", 1000)
+    ops.reset_launch_counts()
+    res = gp.solve(inst, alpha=0.1, max_iters=2, patience=10**6, tol=0.0)
+    counts = ops.launch_counts()
+    assert res.iterations == 2
+    assert _rel(res.cost_history, torch.from_numpy(
+        ref["latch_off_cost_history"][:3].astype(np.float64))) <= 1e-5
+    assert counts["lu_factor"] == counts["chain_solve"] == counts["tagged"] == 0
+    assert counts["bsr_chain"] >= 3 * 2 and counts["tagged_nbr"] >= 2
+
+
+def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    bv = torch.zeros((1, 1, 1, 1, 32, 32), device=cuda)
+    nbr = torch.zeros((1, 1), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ss.chain_solve_bsr(bv, nbr.int(), torch.zeros((1, 1, 20), device=cuda),
+                           torch.zeros((1, 1, 20), device=cuda))
+    with pytest.raises(ValueError):
+        ss.chain_solve_bsr(bv, nbr, torch.zeros((1, 1, 40), device=cuda),
+                           torch.zeros((1, 1, 40), device=cuda))
+    rv = torch.zeros((2, 5, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        ss.tagged_nbr(rv, rv, torch.zeros((5, 2), dtype=torch.int64, device=cuda))
