@@ -8,7 +8,7 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
 ``build/repro_torch_kernels/``.  One JSON line per phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
-  2. build   — the five kernels, one ``nvcc`` each, all started together.
+  2. build   — the seven kernels, one ``nvcc`` each, all started together.
   3. kernels — each kernel against its plain PyTorch version on the card, at
      the shapes Algorithm 1 gives it on sw-queue (V=100, 30 apps, 3 stages),
      on the inputs of a 10-iteration iterate and its ladder candidates:
@@ -58,10 +58,45 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
      metro solve: device time per step, top device operations, idle share
      against the metro phase's unprofiled ms per step.
 
+  10. model_kernels — the edge-serving path's two kernels against their plain
+     versions on the card, within 2e-5 of the plain version's largest
+     |value|: ``flash_attention`` at internlm2-1.8b's full width (B=4,
+     H=16, KV=8, S=2048, hd=128) causal, with a 512-token window, at
+     S=2000 (padded to 2048), and at hd=64 (32 heads, 4 KV heads);
+     ``ssd_chunk`` at mamba2-780m's (B=4, 16 chunks of 128, H=48, P=64,
+     N=128, one B/C group), at one chunk, and through ``ops.ssd_chunk`` at
+     a 32-token prefill it pads to 128 rows.  ``library_ms`` of the
+     attention is ``scaled_dot_product_attention`` in float32 (timed only).
+  11. edge    — the paper's DNN vertical split (``tests/data/torch_ref_edge.json``):
+     the two-chain instance (internlm2-1.8b and mamba2-780m cut in 2
+     segments, 2048 tokens per packet, on Abilene) built by the port, its
+     chains and fields bit-equal to the reference's; the GP step from each
+     of the reference's 52 iterates (rung costs, step cost and strategy
+     within 1e-5, the rung equal or a float32 tie); the latch-off solve
+     within 1e-5 up to its first rung flip, which must be a tie; the
+     default solve, its count replayed by the stall latch, its final cost
+     beside the reference's (the reference does not converge there: its
+     cost oscillates until the stall latch stops it), and where each
+     segment is offloaded.  The same chains at a CPU capacity of 0.04,
+     where the reference's cost falls at every step: the default solve
+     free-running, its count, whole history and final cost within 1e-5.
+     Then each model at full width on the card from
+     a seed (B=4 packets of 2048 seeded tokens): a monolithic forward with
+     the launch counts set to 0 just before and read just after
+     (``flash_attention`` 24 times, ``ssd_chunk`` 48 times, nothing
+     else), the split forward through the chain's segment bounds with the
+     activation packet shipped through host memory (within 1e-6 of the
+     monolithic logits), and the forward through the plain versions
+     (within 1e-3 relative).
+  12. edge_profile — ``torch.profiler`` over one forward of each model:
+     device ms in cuBLAS products, ``flash_attention``, ``ssd_chunk`` and
+     the rest, and the idle share against the unprofiled forward.
+
 Then the ``kernels`` line (each kernel's ``launches`` counted over the
-default solve of the main path it lies on: sw-queue for the dense route's
-three, metro-sw for the sparse route's two), the card's ``nvidia-smi``
-line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
+main path it lies on: the sw-queue default solve for the dense route's
+three, the metro-sw one for the sparse route's two, one full-width
+forward for the model kernels), the card's ``nvidia-smi`` line, and the
+last line ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero without the last line.
 Without CUDA, or without the rest of the repository, it exits non-zero at
 once.
@@ -69,6 +104,7 @@ once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -80,6 +116,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.join(HERE, "tests")
 GOLDEN = os.path.join(TESTS, "data", "torch_ref_sw_queue.json")
 GOLDEN_METRO = os.path.join(TESTS, "data", "torch_ref_metro_sw1000.npz")
+GOLDEN_EDGE = os.path.join(TESTS, "data", "torch_ref_edge.json")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -706,6 +743,387 @@ def phase_metro_profile(ms_per_step: float) -> None:
           "idle_share": 1 - busy / ms_per_step if traced else None,
           "top": [[k[:80], v] for v, k in top[:10]]})
 
+# ---------------------------------------------------------------------------
+# The edge-serving path: the model kernels, the chain instance, the forwards
+# ---------------------------------------------------------------------------
+
+EDGE_B, EDGE_S = 4, 2048          # packets of a full-width forward
+MODEL_TOL = 2e-5                  # kernel vs plain version, relative to max |plain|
+FORWARD_TOL = 1e-3                # logits through the kernels vs the plain versions
+SPLIT_TOL = 1e-6                  # split vs monolithic logits
+
+
+def _max_rel(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error relative to max |want|)."""
+    d = float((got.double() - want.double()).abs().max())
+    return d, d / max(float(want.double().abs().max()), 1e-30)
+
+
+def _flash_row(label, B, H, KV, S, hd, causal=True, window=None, seed=0):
+    """One ``flash_attention`` case at the (B, H, S, hd) layout the kernel
+    takes, S padded to a multiple of 128 as ``ops.flash_attention`` pads it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Sp = -(-S // fa.PAD) * fa.PAD
+    q, k, v = (torch.randn((B, h, S, hd), generator=g, device="cuda") for h in (H, KV, KV))
+    qp, kp, vp = (F.pad(x, (0, 0, 0, Sp - S)).contiguous() for x in (q, k, v))
+    kw = dict(causal=causal, window=window, seq_len=S)
+    got = fa.flash_attention_fwd(qp, kp, vp, **kw)[:, :, :S]
+    want = fa.flash_attention_plain(qp, kp, vp, **kw)[:, :, :S]
+    require(bool(torch.isfinite(got).all()), f"flash_attention {label}: finite")
+    abs_e, rel_e = _max_rel(got, want)
+    require(rel_e <= MODEL_TOL, f"flash_attention {label}: rel err {rel_e}")
+    # work this run needs: the (query, key) pairs in reach of the real rows
+    qi = torch.arange(S, device="cuda")[:, None]
+    ki = torch.arange(S, device="cuda")[None, :]
+    reach = torch.ones((S, S), dtype=torch.bool, device="cuda")
+    if causal:
+        reach &= ki <= qi
+    if window is not None:
+        reach &= ki > qi - window
+    pairs = int(reach.sum())
+    b_ms, b_by = bound((2 * B * H * S * hd + 2 * B * KV * S * hd) * 4, 4 * B * H * pairs * hd)
+    if window is None:
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    else:
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=reach, enable_gqa=True)
+    row = {"shape": [B, H, KV, S, hd], "padded_S": Sp, "causal": causal, "window": window,
+           "max_abs_err": abs_e, "max_rel_err": rel_e,
+           **timed(lambda: fa.flash_attention_fwd(qp, kp, vp, **kw), "flash_kernel"),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(qp, kp, vp, **kw)),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "model_kernels", "name": "flash_attention", "case": label, **row})
+    return row
+
+
+def _ssd_row(label, B, nc, H, P, N, G=1, seed=0):
+    """One ``ssd_chunk`` case on Mamba-2-like inputs: dt = softplus(normal),
+    A = -(1..H) (the initialiser's), B and C read by group."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Q = sc.CHUNK
+    xh = torch.randn((B, nc, Q, H, P), generator=g, device="cuda")
+    dt = F.softplus(torch.randn((B, nc, Q, H), generator=g, device="cuda"))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    cum = torch.cumsum(dt * A, dim=2)
+    Bc = torch.randn((B, nc, Q, G, N), generator=g, device="cuda")
+    Cc = torch.randn((B, nc, Q, G, N), generator=g, device="cuda")
+    args = (xh, dt, cum, Bc, Cc)
+    y, st = sc.ssd_chunk_fwd(*args)
+    yw, sw = sc.ssd_chunk_plain(*args)
+    require(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+            f"ssd_chunk {label}: finite")
+    (ya, yr), (sa, sr) = _max_rel(y, yw), _max_rel(st, sw)
+    require(max(yr, sr) <= MODEL_TOL, f"ssd_chunk {label}: rel err y {yr}, state {sr}")
+    tri = Q * (Q + 1) // 2
+    flops = B * nc * H * (tri * (2 * N + 2 * P + 3) + 2 * Q * N * P + 3 * Q)
+    nbytes = (xh.numel() + 2 * dt.numel() + 2 * Bc.numel() + y.numel() + st.numel()) * 4
+    b_ms, b_by = bound(nbytes, flops)
+    row = {"shape": [B, nc, Q, H, P, N, G], "max_abs_err": max(ya, sa),
+           "max_rel_err_y": yr, "max_rel_err_state": sr,
+           **timed(lambda: sc.ssd_chunk_fwd(*args), "ssd_chunk_kernel"),
+           "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "model_kernels", "name": "ssd_chunk", "case": label, **row})
+    return row
+
+
+def _ssd_short_check(Q=32, B=4, H=48, P=64, N=128):
+    """``ops.ssd_chunk`` on one chunk of a prefill shorter than the kernel's
+    128 rows (padded by the wrapper) against the plain version unpadded."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device="cuda").manual_seed(Q)
+    xh = torch.randn((B, 1, Q, H, P), generator=g, device="cuda")
+    dt = F.softplus(torch.randn((B, 1, Q, H), generator=g, device="cuda"))
+    cum = torch.cumsum(dt * -torch.arange(1, H + 1, dtype=torch.float32, device="cuda"), 2)
+    Bc = torch.randn((B, 1, Q, 1, N), generator=g, device="cuda")
+    Cc = torch.randn((B, 1, Q, 1, N), generator=g, device="cuda")
+    before = sc.ssd_chunk_fwd.launches
+    y, st = ops.ssd_chunk(xh, dt, cum, Bc, Cc)
+    launched = sc.ssd_chunk_fwd.launches - before
+    yw, sw = sc.ssd_chunk_plain(xh, dt, cum, Bc, Cc)
+    (_, yr), (_, sr) = _max_rel(y, yw), _max_rel(st, sw)
+    emit({"phase": "model_kernels", "name": "ssd_chunk", "case": f"short-prefill-S{Q}",
+          "shape": [B, 1, Q, H, P, N, 1], "launches": launched,
+          "max_rel_err_y": yr, "max_rel_err_state": sr})
+    require(launched == 1 and tuple(y.shape) == (B, 1, Q, H, P) and max(yr, sr) <= MODEL_TOL,
+            f"ssd_chunk short prefill S={Q}: launches {launched}, rel err y {yr}, state {sr}")
+
+
+def phase_model_kernels():
+    """The edge path's two kernels vs their plain versions at its shapes."""
+    from repro_torch.kernels import ops
+
+    flash = [
+        _flash_row("internlm2-causal", 4, 16, 8, 2048, 128),
+        _flash_row("internlm2-window512", 4, 16, 8, 2048, 128, window=512, seed=1),
+        _flash_row("internlm2-S2000-padded", 4, 16, 8, 2000, 128, seed=2),
+        _flash_row("hd64-tinyllama-heads", 4, 32, 4, 2048, 64, seed=3),
+    ]
+    ssd = [
+        _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128),
+        _ssd_row("mamba2-S128", 4, 1, 48, 64, 128, seed=1),
+    ]
+    _ssd_short_check()
+    ops.reset_launch_counts()
+    return {"flash_attention": flash, "ssd_chunk": ssd}
+
+
+def _edge_instance(ref):
+    """The chain instance of the golden file, built by the port on the card,
+    held bit-equal to the reference's."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import chain, network
+
+    chains = [chain.chain_from_arch(configs.get(a), n_segments=ref["n_segments"],
+                                    tokens_per_packet=ref["tokens_per_packet"],
+                                    flops_unit=ref["flops_unit"], bits_unit=ref["bits_unit"])
+              for a in ref["archs"]]
+    for c, want in zip(chains, ref["chains"]):
+        require(c.name == want["name"] and np.array_equal(c.L, np.asarray(want["L"]))
+                and np.array_equal(c.w, np.asarray(want["w"])),
+                f"chain {c.name}: L and w bit-equal to the reference's")
+    inst = chain.instance_from_chains(
+        network.TOPOLOGIES[ref["topology"]](), chains, sources=ref["sources"],
+        rates=ref["rates"], dests=ref["dests"], link_capacity=ref["link_capacity"],
+        comp_capacity=ref["comp_capacity"])
+    for f, want in ref["instance"].items():
+        if f in ("link_kind", "comp_kind"):
+            require(getattr(inst, f) == want, f"instance {f}")
+            continue
+        got = getattr(inst, f).cpu()
+        require(torch.equal(got, torch.tensor(want, dtype=got.dtype)),
+                f"instance {f} equal to the reference's")
+    return chains, inst
+
+
+def phase_edge_gp(ref):
+    """GP on the chain instance, held to the reference (golden file): the
+    step from each reference iterate, then the free-running solves."""
+    import numpy as np
+    import torch
+    from _torch_cases import edge_step_parity, free_run_split, stall_stop, stepped_rungs
+    from repro_torch.core import gp, traffic
+
+    chains, inst = _edge_instance(ref)
+    lo, alpha = ref["latch_off"], ref["alpha"]
+    step = edge_step_parity(inst, lo, alpha)
+    costs, rungs = stepped_rungs(inst, alpha, lo["iterations"])
+    off = gp.solve(inst, alpha=alpha, max_iters=lo["iterations"], patience=10**6, tol=0.0)
+    hist = off.cost_history.double().cpu().numpy()
+    flip, tied, prefix = free_run_split(hist, rungs, lo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gp.solve(inst, alpha=alpha, max_iters=ref["max_iters"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dh = res.cost_history.double().cpu().numpy()
+    m = min(len(dh), len(hist))
+    g = traffic.flows(inst, res.phi).g.cpu()
+    offload = {c.name: {f"segment {k + 1}": {str(i): round(float(g[a, k, i]), 4)
+                                              for i in range(inst.V) if g[a, k, i] > 1e-3}
+                        for k in range(c.n_tasks)}
+               for a, c in enumerate(chains)}
+    ref_default = ref["default"]
+    emit({"phase": "edge", "part": "gp", "instance": "abilene, 2 chains "
+          f"{ref['archs']}, {ref['tokens_per_packet']} tokens per packet",
+          "L": [c.L.tolist() for c in chains], "w": [c.w.tolist() for c in chains],
+          "step_parity": step,
+          "latch_off": {"iterations": off.iterations, "reference_iterations": lo["iterations"],
+                        "first_rung_flip": flip, "flip_is_tie": tied,
+                        "prefix_max_rel": prefix},
+          "default": {"iterations": res.iterations,
+                      "reference_iterations": ref_default["iterations"],
+                      "final_cost": res.final_cost,
+                      "reference_final_cost": ref_default["cost_history"][-1],
+                      "reference_final_residual": ref_default["final_residual"],
+                      "reference_cost_range": [min(ref_default["cost_history"]),
+                                               max(ref_default["cost_history"])],
+                      "stall_replay": [stall_stop(dh)[0], stall_stop(ref_default["cost_history"])[0]],
+                      "wall_s": wall},
+          "offload_nodes": offload})
+    require(step["inf_mismatch"] == 0 and step["ladder_max_rel"] <= 1e-5,
+            f"rung costs within 1e-5 at every reference iterate: {step}")
+    require(step["step_max_rel"] <= 1e-5 and step["phi_max_abs"] <= 1e-5,
+            f"each step's cost and strategy within 1e-5: {step}")
+    require(not step["untied_flips"], f"every rung flip is a tie: {step}")
+    require(np.array_equal(hist[1:], costs), "stepped and solved histories equal")
+    require(off.iterations == lo["iterations"], "latch-off count")
+    require(tied and prefix <= 1e-5,
+            f"latch-off history within 1e-5 up to its first rung flip ({flip}), a tie")
+    require(np.array_equal(dh[:m], hist[:m]), "default solve follows the latch-off one")
+    require(stall_stop(dh)[0] == res.iterations
+            and stall_stop(ref_default["cost_history"])[0] == ref_default["iterations"],
+            "the stall latch replays both default counts")
+    if flip is None or flip + 1 >= ref_default["iterations"]:
+        require(res.iterations == ref_default["iterations"]
+                and abs(res.final_cost - ref_default["cost_history"][-1])
+                <= 1e-5 * abs(ref_default["cost_history"][-1]),
+                "no flip before the reference's stop: same count and final cost")
+    _edge_steady_solve(ref, chains)
+    return chains
+
+
+def _edge_steady_solve(ref, chains):
+    """The edge chains at the golden file's ``steady`` CPU capacity, where
+    the reference's cost falls at every step: the card's free-running
+    default solve holds the reference's count, whole history and final
+    cost within 1e-5."""
+    import numpy as np
+    from _torch_cases import stall_stop
+    from repro_torch.core import chain, gp, network
+
+    st = ref["steady"]
+    inst = chain.instance_from_chains(
+        network.TOPOLOGIES[ref["topology"]](), chains, sources=ref["sources"],
+        rates=ref["rates"], dests=ref["dests"], link_capacity=ref["link_capacity"],
+        comp_capacity=st["comp_capacity"])
+    res = gp.solve(inst, alpha=ref["alpha"], max_iters=ref["max_iters"])
+    hist = res.cost_history.double().cpu().numpy()
+    same = len(hist) == len(st["cost_history"])
+    rel = _rel_hist(hist, st["cost_history"]) if same else float("inf")
+    final = abs(res.final_cost - st["cost_history"][-1]) / st["cost_history"][-1]
+    emit({"phase": "edge", "part": "gp_steady", "comp_capacity": st["comp_capacity"],
+          "iterations": res.iterations, "reference_iterations": st["iterations"],
+          "history_max_rel": rel, "final_cost": res.final_cost,
+          "reference_final_cost": st["cost_history"][-1], "final_cost_rel": final,
+          "cost_falls_every_step": bool(np.all(np.diff(hist) < 0)),
+          "stall_replay": stall_stop(hist)[0]})
+    require(res.iterations == st["iterations"] and stall_stop(hist)[0] == res.iterations,
+            f"steady solve: {res.iterations} iterations, reference {st['iterations']}")
+    require(rel <= 1e-5 and final <= 1e-5,
+            f"steady solve: history within {rel}, final cost within {final} of the reference's")
+
+
+def _forward_profile(name, model, batch, ms_forward):
+    """``edge_profile``: where one forward's device time goes."""
+    kern = device_kernels(lambda: model.apply(batch))
+    busy = sum(ms for ms, _ in kern.values())
+    traced = busy > 0
+
+    def part(k):
+        low = k.lower()
+        if "flash_kernel" in k:
+            return "flash_attention"
+        if "ssd_chunk_kernel" in k:
+            return "ssd_chunk"
+        if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas")):
+            return "cublas_products"
+        return "rest"
+
+    split = {"cublas_products": 0.0, "flash_attention": 0.0, "ssd_chunk": 0.0, "rest": 0.0}
+    for k, (ms, _) in kern.items():
+        split[part(k)] += ms
+    top = sorted(((ms, k) for k, (ms, _) in kern.items() if part(k) == "rest"), reverse=True)
+    emit({"phase": "edge_profile", "model": name,
+          "device_ms": busy if traced else None, "device_ms_by_part": split,
+          "device_launches": sum(n for _, n in kern.values()),
+          "idle_share": 1 - busy / ms_forward if traced else None,
+          "top_rest": [[k[:80], ms] for ms, k in top[:6]]})
+
+
+@contextlib.contextmanager
+def through_plain_versions():
+    """Within this block the model kernels' wrappers are swapped for their
+    plain versions (``ops`` looks them up at each call), for the plain
+    forward that the kernels' forward is held to; the launch counters of
+    ``ops.KERNELS`` stay with the kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+
+    saved = fa.flash_attention_fwd, sc.ssd_chunk_fwd
+    fa.flash_attention_fwd, sc.ssd_chunk_fwd = fa.flash_attention_plain, sc.ssd_chunk_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, sc.ssd_chunk_fwd = saved
+
+
+def phase_edge_forwards(chains, seed: int = 0):
+    """Each chain's model at full width on the card: a monolithic forward, the
+    split forward of the chain's two segments, and the forward through the
+    plain versions; then ``edge_profile``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import chain
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    launches = {}
+    for i, prof in enumerate(chains):
+        cfg = configs.get(prof.name)
+        kernel = "flash_attention" if cfg.layer_kind(0) == "attn" else "ssd_chunk"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = transformer.Model(cfg).init(seed + i)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        g = torch.Generator(device="cuda").manual_seed(seed + 100 + i)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (EDGE_B, EDGE_S), generator=g,
+                                         device="cuda")}
+        # the split forward: segment bounds of the chain (chain.py:65)
+        lo, mid, hi = (int(b) for b in chain.segment_bounds(cfg.n_layers, prof.n_tasks))
+        with torch.no_grad():
+            x = model.apply_layers(model.embed(batch), lo, mid)
+            packet = x.cpu()                                  # shipped between nodes
+            split = model.head(model.apply_layers(packet.to(model.device), mid, hi))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        launches[kernel] = counts[kernel]
+        with through_plain_versions():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = model.apply(batch)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        s_abs, s_rel = _max_rel(split, logits)
+        p_abs, p_rel = _max_rel(logits, plain)
+        emit({"phase": "edge", "part": "forward", "model": cfg.name, "params": n_params,
+              "init_s": init_s, "batch": [EDGE_B, EDGE_S],
+              "segments": [[lo, mid], [mid, hi]],
+              "packet": {"shape": list(packet.shape), "bytes": packet.numel() * 4},
+              "logits_shape": list(logits.shape),
+              "split_max_abs_err": s_abs, "split_max_rel_err": s_rel,
+              "split_bit_equal": bool(torch.equal(split, logits)),
+              "plain_max_abs_err": p_abs, "plain_max_rel_err": p_rel,
+              "launches": counts, "ms_per_forward": ms,
+              "tokens_per_s": EDGE_B * EDGE_S / (ms / 1e3),
+              "plain_ms_per_forward": plain_ms,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (EDGE_B, EDGE_S, cfg.vocab),
+                f"{cfg.name}: finite logits of the expected shape")
+        require(s_rel <= SPLIT_TOL, f"{cfg.name}: split vs monolithic {s_rel}")
+        require(p_rel <= FORWARD_TOL, f"{cfg.name}: kernels vs plain forward {p_rel}")
+        require(counts[kernel] == cfg.n_layers
+                and all(v == 0 for k, v in counts.items() if k != kernel),
+                f"{cfg.name}: {kernel} launched once per layer, nothing else: {counts}")
+        _forward_profile(cfg.name, model, batch, ms)
+        del model, logits, split, plain, x, packet
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -715,7 +1133,7 @@ def main() -> int:
         return 1
     src = os.path.join(HERE, "src")
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
-            or not os.path.exists(GOLDEN) or not os.path.exists(GOLDEN_METRO)):
+            or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -726,6 +1144,8 @@ def main() -> int:
     with open(GOLDEN) as fh:
         ref = json.load(fh)
     ref_metro = dict(np.load(GOLDEN_METRO))
+    with open(GOLDEN_EDGE) as fh:
+        ref_edge = json.load(fh)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -735,8 +1155,12 @@ def main() -> int:
     kernels.update(phase_sparse_kernels())
     metro_launches, metro_ms_per_step = phase_metro(ref_metro)
     phase_metro_profile(metro_ms_per_step)
+    kernels.update(phase_model_kernels())
+    chains = phase_edge_gp(ref_edge)
+    model_launches = phase_edge_forwards(chains)
     # each kernel's launches come from the main path it lies on
     launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
+    launches.update(model_launches)
 
     meta = {
         "lu_factor": ("src/repro_torch/kernels/csrc/batched_lu.cu",
@@ -749,6 +1173,10 @@ def main() -> int:
                       "src/repro/kernels/sparse_solve.py:217", 2),
         "tagged_nbr": ("src/repro_torch/kernels/csrc/tagged_nbr.cu",
                        "src/repro/kernels/sparse_solve.py:256", 0),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:73", 0),
+        "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                      "src/repro/kernels/ssd_chunk.py:46", 0),
     }
     line = []
     for name, (source, replaces, pick) in meta.items():

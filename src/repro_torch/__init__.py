@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the service-chain GP solver (``src/repro``).
 
-The package mirrors ``repro`` module for module.  It imports ``torch`` and
-numpy only; the three Pallas kernels of Algorithm 1's hot path are CUDA C++
-kernels for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
+The package mirrors ``repro`` module for module: the GP solver
+(``core``), and the model substrate that the DNN vertical-split chains run
+(``configs``, ``models``).  It imports ``torch`` and numpy only; the Pallas
+kernels on its paths are CUDA C++ kernels for Hopper (``kernels/csrc``),
+built with ``nvcc`` at first use.
 
 Everything computes in float32.  TF32 is switched off here, once, for the
 whole process: reference parity is asserted at full float32 precision.

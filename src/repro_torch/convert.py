@@ -53,3 +53,56 @@ def phi_from_numpy(e, c, device: Device = "cuda") -> Phi:
     dev = resolve_device(device)
     return Phi(e=torch.tensor(np.asarray(e, dtype=np.float32), device=dev),
                c=torch.tensor(np.asarray(c, dtype=np.float32), device=dev))
+
+
+def _layer_period(cfg) -> tuple[int, int]:
+    """(n_prefix, period) of the reference's layer stack: the leading layers
+    it keeps unstacked, and the length of the period its scan stacks."""
+    n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    if cfg.hybrid_attn_period:
+        period = cfg.hybrid_attn_period
+    elif cfg.local_global:
+        period = 2
+    elif cfg.moe and cfg.moe.every > 1:
+        period = cfg.moe.every
+    else:
+        period = 1
+    if (cfg.n_layers - n_prefix) % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers - n_prefix} body layers, period {period}")
+    return n_prefix, period
+
+
+def model_params_from_numpy(cfg, tree: dict) -> dict:
+    """The port's ``Model`` state (``load_state_dict``'s argument, float32 CPU
+    tensors) from the reference's params pytree as nested dicts of numpy
+    arrays (``Model.init``'s pytree with its NamedTuples turned into dicts
+    by field name).
+
+    The reference stacks the layers of each period position along a
+    leading axis (``body[p][...][c]`` is layer ``n_prefix + c * period +
+    p``); this unstacks them into one entry per layer.
+    """
+    n_prefix, period = _layer_period(cfg)
+    n_periods = (cfg.n_layers - n_prefix) // period
+
+    def t(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32))
+
+    out = {"embedding": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = t(tree["lm_head"])
+
+    def put(idx, block, pick):
+        for name, val in block.items():
+            if isinstance(val, dict):
+                for field, arr in val.items():
+                    out[f"layers.{idx}.{name}.{field}"] = t(pick(arr))
+            else:
+                out[f"layers.{idx}.{name}"] = t(pick(val))
+
+    for i, block in enumerate(tree.get("prefix", [])):
+        put(i, block, lambda a: a)
+    for p, block in enumerate(tree["body"]):
+        for c in range(n_periods):
+            put(n_prefix + c * period + p, block, lambda a, c=c: np.asarray(a)[c])
+    return out

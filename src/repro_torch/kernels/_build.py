@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("batched_lu", "chain_solve", "tagged", "bsr_chain", "tagged_nbr")
+SOURCES = ("batched_lu", "chain_solve", "tagged", "bsr_chain", "tagged_nbr",
+           "flash_attention", "ssd_chunk")
 # Shared memory one thread block may use on Hopper (227 KB, set per kernel
 # above 48 KB with cudaFuncSetAttribute).
 SMEM_LIMIT = 232_448

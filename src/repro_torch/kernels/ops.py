@@ -1,6 +1,6 @@
 """Public wrappers around the kernels, over any leading batch dims.
 
-Port of the batched-LU, sparse and blocked-set parts of
+Port of the batched-LU, sparse, blocked-set, attention and SSD parts of
 ``repro.kernels.ops``.
 Leading dims are flattened into the kernel's batch and restored on return,
 so the GP engine hands over ``(A, K1, V, V)`` stacks for the iterate and
@@ -18,10 +18,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import batched_solve as _bs
 from repro_torch.kernels import blocked_sets as _bset
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sparse_solve as _ss
+from repro_torch.kernels import ssd_chunk as _sc
 
 # The kernel wrappers whose ``launches`` counters record the main path.
 KERNELS = {
@@ -30,6 +33,8 @@ KERNELS = {
     "tagged": _bset.tagged,
     "bsr_chain": _ss.chain_solve_bsr,
     "tagged_nbr": _ss.tagged_nbr,
+    "flash_attention": _fa.flash_attention_fwd,
+    "ssd_chunk": _sc.ssd_chunk_fwd,
 }
 
 
@@ -148,3 +153,49 @@ def blocked_tagged_nbr(route: torch.Tensor, improper: torch.Tensor,
     rv = torch.gather(route.reshape(-1, V, V), -1, idx) & mask
     iv = torch.gather(improper.reshape(-1, V, V), -1, idx)
     return _ss.tagged_nbr(rv, iv, nbr).reshape(lead + (V,))
+
+
+# ---------------------------------------------------------------------------
+# Model kernels: attention and the SSD intra-chunk core
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """(B, S, H, hd) layout (``models.attention.sdpa``'s): q (B, S, H, hd),
+    k/v (B, S, KV, hd) -> (B, S, H, hd).
+
+    S is padded to a multiple of 128 as the reference's wrapper pads it,
+    and the kernel is given the true length, so padded keys are masked in
+    non-causal calls too (the reference passes the padded length there).
+    """
+    S = q.shape[1]
+    pad = (-S) % _fa.PAD
+
+    def heads_first(x):
+        x = x.transpose(1, 2)
+        return (F.pad(x, (0, 0, 0, pad)) if pad else x).contiguous()
+
+    out = _fa.flash_attention_fwd(heads_first(q), heads_first(k), heads_first(v),
+                                  causal=causal, window=window, seq_len=S)
+    return out[:, :, :S].transpose(1, 2)
+
+
+def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+              Bc: torch.Tensor, Cc: torch.Tensor):
+    """SSD intra-chunk core, ``models.ssm.ssd_chunked``'s call: xh
+    (B, nc, Q, H, P), dt/cum (B, nc, Q, H), Bc/Cc (B, nc, Q, G, N), read by
+    group -> (y_intra (B, nc, Q, H, P), state_c (B, nc, H, P, N)).
+
+    A chunk shorter than the kernel's 128 rows (a prefill of S < 128
+    tokens) is padded at its end with dt = 0, x = 0, B = C = 0 and cum held
+    at its last value: a padded row adds nothing to a real row's output or
+    to the state, and its own outputs are cut off.
+    """
+    Q = xh.shape[2]
+    pad = _sc.CHUNK - Q
+    if pad > 0:
+        xh, Bc, Cc = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (xh, Bc, Cc))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        cum = torch.cat([cum, cum[:, :, -1:].expand(-1, -1, pad, -1)], dim=2)
+    y, state = _sc.ssd_chunk_fwd(*(x.contiguous() for x in (xh, dt, cum, Bc, Cc)))
+    return y[:, :, :Q], state

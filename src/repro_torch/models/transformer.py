@@ -1,0 +1,98 @@
+"""Config-driven model: embedding -> block stack -> final norm -> head.
+
+Port of ``repro.models.transformer`` for the cache-less forward (score /
+prefill without a cache).  One :class:`~repro_torch.models.blocks.Block`
+module per layer, in order; the reference's scan over layer periods is
+gone (``convert.model_params_from_numpy`` unstacks its period axis).
+
+``Model`` allocates its parameters on the device (CUDA unless the caller
+asks for the CPU) and :meth:`Model.init` fills them from a seeded
+``torch.Generator`` on that device with the reference's distributions.
+A vertical split is the same forward cut in two:
+``head(apply_layers(apply_layers(embed(batch), 0, b), b, n))``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.network import Device, resolve_device
+from repro_torch.models import blocks, layers
+
+
+class Model(nn.Module):
+    """Parameters: ``embedding`` (vocab, d), ``final_norm`` (d), ``lm_head``
+    (d, vocab) unless tied, ``layers.<i>.*`` per block."""
+
+    def __init__(self, cfg: ModelConfig, *, device: Device = "cuda"):
+        super().__init__()
+        cfg.validate()
+        blocks.check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=dev), requires_grad=False)
+
+        self.embedding = param(cfg.vocab, cfg.d_model)
+        self.final_norm = param(cfg.d_model)
+        if not cfg.tie_embeddings:
+            self.lm_head = param(cfg.d_model, cfg.vocab)
+        self.layers = nn.ModuleList(
+            blocks.Block(cfg, blocks.layer_meta(cfg, i), dev) for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    def init(self, seed: int | torch.Generator = 0) -> "Model":
+        """Fill every parameter in place from ``seed`` (an int, or a
+        generator on the model's device); returns the model."""
+        gen = seed
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        with torch.no_grad():
+            layers.embed_init_(self.embedding, gen)
+            self.final_norm.zero_()
+            if not self.cfg.tie_embeddings:
+                layers.dense_init_(self.lm_head, gen)
+            for block in self.layers:
+                blocks.init_block(block, gen)
+        return self
+
+    def positions(self, batch: int, seq: int) -> torch.Tensor:
+        return torch.arange(seq, device=self.device)[None].expand(batch, seq)
+
+    def embed(self, batch: dict) -> torch.Tensor:
+        """{"tokens": (B, S) int} -> x (B, S, d)."""
+        return self.embedding[batch["tokens"]]
+
+    def apply_layers(self, x: torch.Tensor, start: int = 0, stop: int | None = None,
+                     positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Run layers ``start:stop`` on the residual stream x (B, S, d)."""
+        if positions is None:
+            positions = self.positions(x.shape[0], x.shape[1])
+        for block in self.layers[start:stop]:
+            x = block(x, positions)
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        x = layers.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        w = self.embedding.T if self.cfg.tie_embeddings else self.lm_head
+        return layers.softcap((x @ w).float(), self.cfg.final_softcap)
+
+    @torch.no_grad()
+    def apply(self, batch: dict) -> torch.Tensor:
+        """Cache-less forward: {"tokens": (B, S)} -> logits (B, S, vocab)."""
+        return self.head(self.apply_layers(self.embed(batch)))
+
+
+def make_model(cfg_or_name, *, reduced: bool = False, device: Device = "cuda") -> Model:
+    if isinstance(cfg_or_name, str):
+        from repro_torch import configs
+        cfg = configs.get(cfg_or_name, reduced=reduced)
+    else:
+        cfg = cfg_or_name
+    return Model(cfg, device=device)

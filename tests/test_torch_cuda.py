@@ -13,7 +13,10 @@ another order than the plain versions and fuse multiply-adds); bit-exact
 for the tagged bitsets, the neighbor-list tagged sweep and the sweep
 counts of the blocked chain solve, whose kernel and plain version share
 one summation order (its values are held to 1e-5 with the same +inf
-entries, and their largest difference is printed).
+entries, and their largest difference is printed).  The attention and SSD
+kernels: 2e-5 relative to the plain version's largest |value|; a forward
+of a whole (reduced) model through the kernels against the same forward
+through the plain versions: 1e-4.
 """
 
 import os
@@ -250,3 +253,149 @@ def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rv = torch.zeros((2, 5, 3), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         ss.tagged_nbr(rv, rv, torch.zeros((5, 2), dtype=torch.int64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the model kernels: flash attention and the SSD chunk
+# ---------------------------------------------------------------------------
+
+def _max_rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal,window", [
+    (256, 4, 2, 64, True, None),
+    (256, 4, 4, 64, True, 64),
+    (130, 4, 2, 64, True, None),          # padded to 256, true length 130
+    (200, 4, 2, 64, False, None),         # non-causal, padded keys masked
+    (512, 8, 2, 128, True, None),
+    (512, 8, 8, 128, True, 200),          # window not a tile multiple
+])
+def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, S, H, KV, hd, causal,
+                                              window):
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    q = torch.randn((2, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    kernel = fa.flash_attention_fwd
+    before = kernel.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    monkeypatch.setattr(fa, "flash_attention_fwd", fa.flash_attention_plain)
+    want = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (2, S, H, hd) and bool(torch.isfinite(got).all())
+    assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("nc,H,P,N,G", [(2, 4, 32, 32, 1), (1, 6, 64, 128, 2),
+                                        (3, 4, 64, 64, 4)])
+def test_ssd_chunk_kernel_matches_plain(cuda, nc, H, P, N, G):
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device=cuda).manual_seed(nc * H + P + N)
+    B, Q = 2, 128
+    xh = torch.randn((B, nc, Q, H, P), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((B, nc, Q, H), generator=g, device=cuda))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    cum = torch.cumsum(dt * A, dim=2)
+    Bc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    Cc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    y, st = sc.ssd_chunk_fwd(xh, dt, cum, Bc, Cc)
+    yw, sw = sc.ssd_chunk_plain(xh, dt, cum, Bc, Cc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert _max_rel(y, yw) <= 2e-5 and _max_rel(st, sw) <= 2e-5
+
+
+@pytest.mark.parametrize("Q,G", [(32, 1), (100, 2)])
+def test_ssd_chunk_short_chunk_padded_on_card(cuda, Q, G):
+    """A prefill shorter than the kernel's 128 rows: ``ops.ssd_chunk`` pads
+    the chunk, launches the kernel once and matches the plain version on
+    the unpadded chunk."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device=cuda).manual_seed(Q + G)
+    B, nc, H, P, N = 2, 1, 4, 64, 128
+    xh = torch.randn((B, nc, Q, H, P), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((B, nc, Q, H), generator=g, device=cuda))
+    cum = torch.cumsum(dt * -torch.arange(1, H + 1, dtype=torch.float32, device=cuda), dim=2)
+    Bc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    Cc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    before = sc.ssd_chunk_fwd.launches
+    y, st = ops.ssd_chunk(xh, dt, cum, Bc, Cc)
+    yw, sw = sc.ssd_chunk_plain(xh, dt, cum, Bc, Cc)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_fwd.launches == before + 1
+    assert y.shape == (B, nc, Q, H, P) and st.shape == (B, nc, H, P, N)
+    assert _max_rel(y, yw) <= 2e-5 and _max_rel(st, sw) <= 2e-5
+
+
+def test_model_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+
+    q = torch.zeros((1, 2, 128, 96), device=cuda)           # hd 96
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 2, 100, 64), device=cuda)           # S not a tile multiple
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)
+    x = torch.zeros((1, 1, 64, 2, 32), device=cuda)         # Q = 64
+    d = torch.zeros((1, 1, 64, 2), device=cuda)
+    b = torch.zeros((1, 1, 64, 1, 32), device=cuda)
+    with pytest.raises(ValueError):
+        sc.ssd_chunk_fwd(x, d, d, b, b)
+
+
+def _plain_forward(monkeypatch, model, batch):
+    """``model``'s forward with the model kernels' wrappers swapped for their
+    plain versions (``ops`` looks them up at each call)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+
+    with monkeypatch.context() as m:
+        m.setattr(fa, "flash_attention_fwd", fa.flash_attention_plain)
+        m.setattr(sc, "ssd_chunk_fwd", sc.ssd_chunk_plain)
+        return model.apply(batch)
+
+
+def _forward_on_card(monkeypatch, cuda, name, S):
+    """A reduced model's forward on 2 x S tokens through the kernels against
+    the same forward through the plain versions, and the split forward
+    bit-equal to the monolithic one."""
+    from repro_torch.core import chain
+    from repro_torch.models import transformer
+
+    model = transformer.make_model(name, reduced=True).init(3)
+    toks = torch.randint(0, model.cfg.vocab, (2, S),
+                         generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    batch = {"tokens": toks}
+    ops.reset_launch_counts()
+    logits = model.apply(batch)
+    counts = ops.launch_counts()
+    kernel = "flash_attention" if name.startswith("internlm2") else "ssd_chunk"
+    assert counts[kernel] == model.cfg.n_layers
+    lo, mid, hi = (int(b) for b in chain.segment_bounds(model.cfg.n_layers, 2))
+    split = model.head(model.apply_layers(model.apply_layers(model.embed(batch), lo, mid),
+                                          mid, hi))
+    plain = _plain_forward(monkeypatch, model, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert torch.equal(split, logits)
+    assert _max_rel(logits, plain) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-780m"])
+def test_reduced_model_forward_on_card(cuda, monkeypatch, name):
+    """The whole path at a tiny size (S = 256)."""
+    _forward_on_card(monkeypatch, cuda, name, 256)
+
+
+@pytest.mark.parametrize("S", [32, 100])
+def test_short_prefill_forward_on_card(cuda, monkeypatch, S):
+    """An SSM prefill shorter than one 128-token chunk, which the SSD wrapper
+    pads: S = 32 is the edge-serving example's packet."""
+    _forward_on_card(monkeypatch, cuda, "mamba2-780m", S)
