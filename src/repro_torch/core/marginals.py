@@ -33,21 +33,22 @@ BIG = 1e9
 
 
 class Marginals(NamedTuple):
-    pdt: torch.Tensor       # (A, K1, V)     dD/dt_i(a,k)
-    delta_e: torch.Tensor   # (A, K1, V, V)  delta_ij(a,k); BIG on non-links
-    delta_c: torch.Tensor   # (A, K1, V)     delta_i0(a,k); BIG when k == K_a
-    Dp: torch.Tensor        # (V, V)         D'_ij(F_ij)
-    Cp: torch.Tensor        # (V,)           C'_i(G_i)
+    pdt: torch.Tensor       # (..., A, K1, V)     dD/dt_i(a,k)
+    delta_e: torch.Tensor   # (..., A, K1, V, V)  delta_ij(a,k); BIG on non-links
+    delta_c: torch.Tensor   # (..., A, K1, V)     delta_i0(a,k); BIG when k == K_a
+    Dp: torch.Tensor        # (..., V, V)         D'_ij(F_ij)
+    Cp: torch.Tensor        # (..., V)            C'_i(G_i)
 
 
 def pdt_base(inst: Instance, phi: Phi, Dp: torch.Tensor,
              Cp: torch.Tensor) -> torch.Tensor:
-    """(A, K1, V) right-hand side of recursion (4) without the chain term:
+    """(..., A, K1, V) right-hand side of recursion (4) without the chain term:
     sum_j phi_ij L_k D'_ij + phi_i0 w_k wnode_i C'_i."""
     link_term = torch.einsum(
-        "akij,akij->aki", phi.e, inst.L[:, :, None, None] * Dp[None, None])
+        "...akij,...akij->...aki", phi.e,
+        inst.L[..., None, None] * Dp[..., None, None, :, :])
     return link_term + phi.c * (
-        inst.w[:, :, None] * inst.wnode[None, None] * Cp[None, None])
+        inst.w[..., None] * inst.wnode[..., None, None, :] * Cp[..., None, None, :])
 
 
 def pdt_recursion(inst: Instance, phi: Phi, Dp: torch.Tensor, Cp: torch.Tensor,
@@ -101,11 +102,13 @@ def marginals(inst: Instance, phi: Phi, fl: Optional[Flows] = None,
     Cp = comp_marginals(inst, fl.G)
     pdt = pdt_recursion(inst, phi, Dp, Cp, fact, solver=solver)
 
-    delta_e = inst.L[:, :, None, None] * Dp[None, None] + pdt[:, :, None, :]
-    delta_e = torch.where(inst.adj[None, None], delta_e, BIG)
+    delta_e = (inst.L[..., None, None] * Dp[..., None, None, :, :]
+               + pdt[..., None, :])
+    delta_e = torch.where(inst.adj[..., None, None, :, :], delta_e, BIG)
 
-    pdt_next = torch.cat([pdt[:, 1:, :], torch.zeros_like(pdt[:, :1, :])], dim=1)
-    delta_c = (inst.w[:, :, None] * inst.wnode[None, None] * Cp[None, None]
-               + pdt_next)
-    delta_c = torch.where(inst.cpu_allowed()[:, :, None], delta_c, BIG)
+    pdt_next = torch.cat([pdt[..., 1:, :], torch.zeros_like(pdt[..., :1, :])],
+                         dim=-2)
+    delta_c = (inst.w[..., None] * inst.wnode[..., None, None, :]
+               * Cp[..., None, None, :] + pdt_next)
+    delta_c = torch.where(inst.cpu_allowed()[..., None], delta_c, BIG)
     return Marginals(pdt=pdt, delta_e=delta_e, delta_c=delta_c, Dp=Dp, Cp=Cp)

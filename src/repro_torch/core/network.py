@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import random
 from typing import Optional, Union
 
 import numpy as np
@@ -85,15 +87,21 @@ class Instance:
 
     @property
     def V(self) -> int:
-        return int(self.adj.shape[0])
+        return int(self.adj.shape[-1])
 
     @property
     def A(self) -> int:
-        return int(self.L.shape[0])
+        return int(self.L.shape[-2])
 
     @property
     def K1(self) -> int:
-        return int(self.L.shape[1])
+        return int(self.L.shape[-1])
+
+    @property
+    def batch_shape(self) -> tuple:
+        """Leading member dims: () for one instance, (B,) for a stacked
+        family (``batch.pad_instances``); every field carries them."""
+        return tuple(self.adj.shape[:-2])
 
     @property
     def device(self) -> torch.device:
@@ -110,24 +118,43 @@ class Instance:
         return int(self.out_nbr.shape[-1]) if self.has_sparse else 0
 
     def degenerate_mask(self) -> torch.Tensor:
-        """(A, K1, V) bool: True where phi must sum to 0 (eq. (1) lower branch).
+        """(..., A, K1, V) bool: True where phi must sum to 0 (eq. (1) lower
+        branch).
 
         Stage K_a at the destination is the network's exit; a final-stage
         row at a node without outgoing links is degenerate too.
         """
         dev = self.device
-        karr = torch.arange(self.K1, device=dev)[None, :, None]     # (1,K1,1)
-        is_last = karr == self.n_tasks[:, None, None]                # (A,K1,1)
-        is_dst = (torch.arange(self.V, device=dev)[None, None, :]
-                  == self.dst[:, None, None])
-        no_out = ~self.adj.any(dim=1)                                # (V,)
-        return ((is_last & is_dst) | (is_last & no_out[None, None, :])
-                | ~self.stage_mask[:, :, None])
+        karr = torch.arange(self.K1, device=dev)[:, None]             # (K1,1)
+        is_last = karr == self.n_tasks[..., None, None]                # (...,A,K1,1)
+        is_dst = (torch.arange(self.V, device=dev)
+                  == self.dst[..., None, None])                        # (...,A,1,V)
+        no_out = ~self.adj.any(dim=-1)                                 # (...,V)
+        return ((is_last & is_dst) | (is_last & no_out[..., None, None, :])
+                | ~self.stage_mask[..., None])
 
     def cpu_allowed(self) -> torch.Tensor:
-        """(A, K1) bool: whether phi_{i0}(a,k) may be nonzero (k < |T_a|)."""
-        karr = torch.arange(self.K1, device=self.device)[None, :]
-        return (karr < self.n_tasks[:, None]) & self.stage_mask
+        """(..., A, K1) bool: whether phi_{i0}(a,k) may be nonzero (k < |T_a|)."""
+        karr = torch.arange(self.K1, device=self.device)
+        return (karr < self.n_tasks[..., None]) & self.stage_mask
+
+    @functools.cached_property
+    def lifted(self) -> "Instance":
+        """The instance with a unit dim after its member dims on every dense
+        field, so that it broadcasts against a strategy stack with one more
+        leading dim (the stepsize ladder's candidates).  The sparse
+        topology is shared, not lifted.  Built once per instance: a solve
+        asks for it twice a step."""
+        cut = len(self.batch_shape)
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).reshape(getattr(self, f).shape[:cut] + (1,)
+                                        + getattr(self, f).shape[cut:])
+            for f in DENSE_FIELDS})
+
+
+# The per-instance tensor fields, the ones a member dim is stacked on.
+DENSE_FIELDS = ("adj", "link_param", "comp_param", "L", "w", "wnode", "r", "dst",
+                "n_tasks", "stage_mask")
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +174,51 @@ def _n_undirected(adj: np.ndarray) -> int:
     return int(np.triu(adj | adj.T).sum())
 
 
+def _gnm_edges(n: int, m: int, seed: int) -> list[tuple[int, int]]:
+    """networkx 3.x ``gnm_random_graph(n, m, seed)``'s draws: over
+    ``random.Random(seed)``, pick u and v uniformly from the n nodes,
+    reject a self-loop or a repeated edge, stop at m edges (all of them
+    when m reaches n(n-1)/2)."""
+    if m >= n * (n - 1) / 2:
+        return [(u, v) for u in range(n) for v in range(u + 1, n)]
+    draw = random.Random(seed)
+    nodes = range(n)
+    edges: set[frozenset] = set()
+    out = []
+    while len(out) < m:
+        u, v = draw.choice(nodes), draw.choice(nodes)
+        if u == v or frozenset((u, v)) in edges:
+            continue
+        edges.add(frozenset((u, v)))
+        out.append((u, v))
+    return out
+
+
+def _connected(adj: np.ndarray) -> bool:
+    """Breadth-first search from node 0 reaches every node."""
+    seen = np.zeros(adj.shape[0], dtype=bool)
+    seen[0] = True
+    frontier = [0]
+    while frontier:
+        nxt = np.flatnonzero(adj[frontier].any(axis=0) & ~seen)
+        seen[nxt] = True
+        frontier = nxt.tolist()
+    return bool(seen.all())
+
+
 def connected_er(n: int = 20, m: int = 40, seed: int = 0) -> np.ndarray:
-    """Not ported: the reference samples with networkx's gnm_random_graph,
-    whose draws this package does not reproduce yet."""
-    raise NotImplementedError(
-        "connected-er needs networkx's gnm_random_graph sampler; "
-        "not ported yet (ROADMAP)")
+    """Connectivity-guaranteed Erdos-Renyi graph with n nodes and m edges.
+
+    The reference's sampler, draw for draw: an outer numpy generator seeds
+    each networkx-style G(n, m) trial (:func:`_gnm_edges`) until one is
+    connected.
+    """
+    rng = np.random.default_rng(seed)
+    for _ in range(10_000):
+        adj = _to_directed(n, _gnm_edges(n, m, int(rng.integers(1 << 31))))
+        if _connected(adj):
+            return adj
+    raise RuntimeError("could not sample a connected ER graph")
 
 
 def balanced_tree(r: int = 2, h: int = 3) -> np.ndarray:

@@ -17,8 +17,11 @@ V >= :data:`SPARSE_MIN_V`, else ``"batched_lu"``.  ``solver="dense"`` keeps
 the seed's per-stage ``torch.linalg.solve`` as the differential reference.
 
 Every function here accepts extra leading dims in front of ``(A, K1, ...)``
-on the strategy: the stepsize ladder evaluates its 12 candidates as one
-leading batch dim, in one factor launch and one chain launch.
+on the strategy, and the instance may carry member dims of its own (a
+stacked family, ``batch.pad_instances``): instance fields broadcast against
+the strategy from the right.  The stepsize ladder evaluates its 12
+candidates as one more leading dim (the instance ``lifted`` by one), in one
+factor launch and one chain launch.
 """
 
 from __future__ import annotations
@@ -145,8 +148,8 @@ def flows(inst: Instance, phi: Phi, fact: Optional[ops.BatchedLU] = None, *,
     """All flow quantities induced by strategy phi (Table I)."""
     t, g = stage_traffic(inst, phi, fact, solver=solver)
     f = t[..., None] * phi.e                                  # (...,A,K1,V,V)
-    F = torch.einsum("ak,...akij->...ij", inst.L, f)
-    G = torch.einsum("ak,...aki->...i", inst.w, g) * inst.wnode
+    F = torch.einsum("...ak,...akij->...ij", inst.L, f)
+    G = torch.einsum("...ak,...aki->...i", inst.w, g) * inst.wnode
     return Flows(t=t, g=g, f=f, F=F, G=G)
 
 
@@ -157,11 +160,11 @@ def traffic_is_valid(inst: Instance, t: torch.Tensor) -> torch.Tensor:
     the total injected rate; a routing loop makes the solve return values
     far outside that bound, or non-finite ones.
     """
-    rmax = inst.r.sum(dim=1).max()
+    rmax = inst.r.sum(dim=-2).amax(dim=-1)
     bound = 4.0 * rmax + 1.0
     tt = t.flatten(-3)
     return (torch.isfinite(tt).all(dim=-1) & (tt > -1e-3).all(dim=-1)
-            & (tt < bound).all(dim=-1))
+            & (tt < bound[..., None]).all(dim=-1))
 
 
 def cost_of_flows(inst: Instance, F: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
@@ -176,6 +179,14 @@ def total_cost(inst: Instance, phi: Phi, *, solver: str = "auto") -> torch.Tenso
     """Objective of problem (2): D(phi) = sum D_ij(F_ij) + sum C_i(G_i)."""
     fl = flows(inst, phi, solver=solver)
     return cost_of_flows(inst, fl.F, fl.G)
+
+
+def feasibility_violation(inst: Instance, phi: Phi) -> torch.Tensor:
+    """(...,) max violation of constraint (1) per strategy: the largest
+    |row sum - 1| (|row sum| on degenerate rows)."""
+    tot = phi.e.sum(-1) + phi.c
+    want = torch.where(inst.degenerate_mask(), 0.0, 1.0)
+    return (tot - want).abs().flatten(-3).amax(dim=-1)
 
 
 def link_marginals(inst: Instance, F: torch.Tensor) -> torch.Tensor:
@@ -197,8 +208,8 @@ def renormalize(inst: Instance, phi: Phi) -> Phi:
     are forced to zero; CPU fractions at the final stage are forced to zero.
     """
     zero = phi.e.new_zeros(())
-    e = torch.where(inst.adj, torch.maximum(phi.e, zero), zero)
-    c = torch.maximum(phi.c, zero) * inst.cpu_allowed()[:, :, None]
+    e = torch.where(inst.adj[..., None, None, :, :], torch.maximum(phi.e, zero), zero)
+    c = torch.maximum(phi.c, zero) * inst.cpu_allowed()[..., None]
     tot = e.sum(-1) + c                                       # (...,A,K1,V)
     degen = inst.degenerate_mask()
     scale = torch.where(degen | (tot <= 0), zero,

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exports plain C entry points (no PyTorch headers),
 so one ``nvcc`` call per source takes seconds.  The shared libraries go to
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  :func:`build_all` starts one ``nvcc`` per source, all at
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source, all at
 once, and waits for every one of them.
 
 No ``--use_fast_math``: the kernels rely on IEEE division and on NaN/inf
@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("batched_lu", "chain_solve", "tagged", "bsr_chain", "tagged_nbr",
-           "flash_attention", "ssd_chunk")
+SOURCES = ("batched_lu", "chain_solve", "lu_solve", "tagged", "bsr_chain",
+           "tagged_nbr", "chain_propagate", "flash_attention", "ssd_chunk")
 # Shared memory one thread block may use on Hopper (227 KB, set per kernel
 # above 48 KB with cudaFuncSetAttribute).
 SMEM_LIMIT = 232_448
@@ -47,6 +47,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is built."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (two_sweep.cuh) are part of every source's hash
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

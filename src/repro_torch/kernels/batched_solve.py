@@ -13,12 +13,15 @@ whose matrices differ only by a transpose, so one factorization serves both.
     for which LU without pivoting exists and is stable; a loopy candidate's
     ~0 pivot carries inf/nan in that member only, and :func:`factor_ok`
     flags it.
+  * :func:`lu_solve` — one right-hand side per member from its packed
+    factor, ``A x = b`` (trans=0) or ``A^T x = b`` (trans=1): the two
+    triangular sweeps.
   * :func:`chain_solve` — walks each member's K stages,
     ``x_k = A_k^{-1(T)}(base_k + mult_k * x_prev)``, with two triangular
     sweeps per stage from the packed factors.
 
 Each wrapper launches its CUDA kernel (``csrc/batched_lu.cu``,
-``csrc/chain_solve.cu``) for a CUDA tensor and runs the plain PyTorch
+``csrc/lu_solve.cu``, ``csrc/chain_solve.cu``) for a CUDA tensor and runs the plain PyTorch
 version of the same arithmetic for a CPU tensor; the plain versions are
 also the on-card oracles of ``chip_smoke.py``.  ``<wrapper>.launches``
 counts kernel launches.
@@ -38,6 +41,10 @@ PIVOT_TINY = 1e-30
 
 def _smem_lu(V: int) -> int:
     return 4 * V * (V | 1)
+
+
+def _smem_solve(V: int) -> int:
+    return 4 * (V * (V | 1) + V)
 
 
 def _smem_chain(V: int) -> int:
@@ -140,6 +147,55 @@ def _two_sweep_plain(lu: torch.Tensor, b: torch.Tensor, trans: int) -> torch.Ten
         s = (m[:, i, i + 1:] * y[:, i + 1:]).sum(-1)
         y[:, i] = y[:, i] - s if trans else (y[:, i] - s) / m[:, i, i]
     return y
+
+
+def lu_solve_plain(lu: torch.Tensor, rhs: torch.Tensor, *,
+                   trans: int = 0) -> torch.Tensor:
+    """Plain two-sweep solve: lu (B, V, V), rhs (B, V) -> (B, V)."""
+    return _two_sweep_plain(lu, rhs.to(torch.float32), trans)
+
+
+def lu_solve(lu: torch.Tensor, rhs: torch.Tensor, *, trans: int = 0) -> torch.Tensor:
+    """Solve packed-LU systems: lu (B, V, V), rhs (B, V) -> (B, V).
+
+    CUDA tensors: one launch of ``csrc/lu_solve.cu``, one block per member,
+    the factor read by column for trans=1.  CPU tensors: the plain version.
+    Identity row permutation (the factors of :func:`lu_factor`).
+    """
+    if lu.device.type == "cpu":
+        return lu_solve_plain(lu, rhs, trans=trans)
+    _check_cuda(lu, "lu_solve lu", 3)
+    _check_cuda(rhs, "lu_solve rhs", 2)
+    B, V, V2 = lu.shape
+    if V != V2 or rhs.shape != (B, V):
+        raise ValueError(f"lu_solve: shapes lu {tuple(lu.shape)}, rhs "
+                         f"{tuple(rhs.shape)} do not agree")
+    if rhs.device != lu.device:
+        raise ValueError("lu_solve: all inputs must be on one device")
+    _check_smem(_smem_solve(V), V, "lu_solve")
+    out = torch.empty_like(rhs)
+    fn = _build.function("lu_solve", "repro_lu_solve",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(lu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(lu.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, V, int(trans), stream)
+    _build.check("lu_solve", rc, "lu_solve")
+    lu_solve.launches += 1
+    return out
+
+
+lu_solve.launches = 0
+
+
+def residuals(mats: torch.Tensor, x: torch.Tensor, rhs: torch.Tensor, *,
+              trans: int = 0) -> torch.Tensor:
+    """(B,) relative residuals ``|A x - b|_inf / (|b|_inf + 1)``; inf for a
+    non-finite member (the per-member divergence flag)."""
+    op = torch.einsum("bji,bj->bi" if trans else "bij,bj->bi",
+                      mats.to(torch.float32), x.to(torch.float32))
+    r = ((op - rhs).abs().amax(dim=-1)
+         / (rhs.abs().amax(dim=-1) + 1.0))
+    return torch.where(torch.isfinite(r), r, torch.inf)
 
 
 def chain_solve_plain(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,

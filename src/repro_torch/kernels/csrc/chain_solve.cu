@@ -19,13 +19,9 @@
 // Design: one thread block per chain.  The block's warps load the stage's
 // factor into shared memory with coalesced row reads; x_prev and the
 // right-hand side stay in shared memory across the K stages, so the
-// sequential chain never leaves the SM.  Warp 0 then runs both sweeps: per
-// row, one warp-reduced dot product (lanes stride the row, a shuffle tree
-// sums) and lane 0 writes the result, with __syncwarp() ordering the rows.
-// trans=1 reads the factor's columns by index arithmetic (first U^T, lower
-// with diagonal, then L^T, unit upper) instead of materialising a
-// transposed copy; the odd shared row stride keeps those column reads on
-// distinct banks.  Many chains run concurrently, one block each.
+// sequential chain never leaves the SM.  Warp 0 then runs both sweeps
+// (two_sweep.cuh: one warp-reduced dot product per row; trans=1 reads the
+// factor by column).  Many chains run concurrently, one block each.
 //
 // Identity row permutation assumed (the unpivoted factors of batched_lu.cu).
 // IEEE division; the clamp is written so that NaN propagates as
@@ -33,15 +29,12 @@
 
 #include <cuda_runtime.h>
 
+#include "two_sweep.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const float* __restrict__ lu, const float* __restrict__ base,
@@ -68,22 +61,7 @@ chain_kernel(const float* __restrict__ lu, const float* __restrict__ base,
     __syncthreads();
 
     if (warp == 0) {
-      // forward sweep: unit-lower L (trans=0) / U^T with its diagonal (trans=1)
-      for (int i = 0; i < V; ++i) {
-        float acc = 0.f;
-        for (int j = lane; j < i; j += 32) acc += (trans ? m[j * ld + i] : m[i * ld + j]) * y[j];
-        acc = warp_sum(acc);
-        if (lane == 0) y[i] = trans ? (y[i] - acc) / m[i * ld + i] : y[i] - acc;
-        __syncwarp();
-      }
-      // backward sweep: U with its diagonal (trans=0) / unit-upper L^T (trans=1)
-      for (int i = V - 1; i >= 0; --i) {
-        float acc = 0.f;
-        for (int j = i + 1 + lane; j < V; j += 32) acc += (trans ? m[j * ld + i] : m[i * ld + j]) * y[j];
-        acc = warp_sum(acc);
-        if (lane == 0) y[i] = trans ? y[i] - acc : (y[i] - acc) / m[i * ld + i];
-        __syncwarp();
-      }
+      repro::two_sweep_warp(m, ld, y, V, trans, lane);
       for (int i = lane; i < V; i += 32) {
         float v = y[i];
         if (clamp) v = (v != v) ? v : fmaxf(v, 0.f);

@@ -1,7 +1,7 @@
 """Public wrappers around the kernels, over any leading batch dims.
 
-Port of the batched-LU, sparse, blocked-set, attention and SSD parts of
-``repro.kernels.ops``.
+Port of ``repro.kernels.ops``: the batched-LU, propagation, sparse,
+blocked-set, attention and SSD wrappers.
 Leading dims are flattened into the kernel's batch and restored on return,
 so the GP engine hands over ``(A, K1, V, V)`` stacks for the iterate and
 ``(ladder, A, K1, V, V)`` stacks for the stepsize ladder alike, each in ONE
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import batched_solve as _bs
 from repro_torch.kernels import blocked_sets as _bset
+from repro_torch.kernels import chain_propagate as _cp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sparse_solve as _ss
 from repro_torch.kernels import ssd_chunk as _sc
@@ -30,9 +31,11 @@ from repro_torch.kernels import ssd_chunk as _sc
 KERNELS = {
     "lu_factor": _bs.lu_factor,
     "chain_solve": _bs.chain_solve,
+    "lu_solve": _bs.lu_solve,
     "tagged": _bset.tagged,
     "bsr_chain": _ss.chain_solve_bsr,
     "tagged_nbr": _ss.tagged_nbr,
+    "propagate_step": _cp.propagate_step,
     "flash_attention": _fa.flash_attention_fwd,
     "ssd_chunk": _sc.ssd_chunk_fwd,
 }
@@ -66,6 +69,47 @@ def batched_factor(mats: torch.Tensor) -> BatchedLU:
     lu = _bs.lu_factor(mats.reshape(-1, V, V).contiguous())
     return BatchedLU(lu=lu.reshape(lead + (V, V)),
                      ok=_bs.factor_ok(lu).reshape(lead))
+
+
+def batched_solve_factored(fact: BatchedLU, rhs: torch.Tensor, *,
+                           trans: int = 0) -> torch.Tensor:
+    """Solve A x = rhs (trans=0) or A^T x = rhs (trans=1) from factors:
+    fact.lu (..., V, V), rhs (..., V) -> (..., V), every member in one
+    ``lu_solve`` launch.  The factors' permutation is the identity."""
+    V = rhs.shape[-1]
+    x = _bs.lu_solve(fact.lu.reshape(-1, V, V).contiguous(),
+                     rhs.reshape(-1, V).to(torch.float32).contiguous(), trans=trans)
+    return x.reshape(rhs.shape)
+
+
+def batched_solve(mats: torch.Tensor, rhs: torch.Tensor, *,
+                  trans: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-shot factor and solve with per-member residual flags.
+
+    Returns ``(x (..., V), resid (...,))``, resid the relative residual
+    ``|A x - b|_inf / (|b|_inf + 1)``, inf for a non-finite member: a
+    singular member flags itself without touching the others.
+    """
+    fact = batched_factor(mats)
+    x = batched_solve_factored(fact, rhs, trans=trans)
+    lead, V = mats.shape[:-2], mats.shape[-1]
+    resid = _bs.residuals(mats.reshape(-1, V, V), x.reshape(-1, V),
+                          rhs.reshape(-1, V), trans=trans)
+    return x, resid.reshape(lead)
+
+
+def propagate_step(t: torch.Tensor, M: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """One Neumann sweep for all stages: t, src (S, V); M (S, V, V) -> (S, V)."""
+    return _cp.propagate_step(t.to(torch.float32).contiguous(),
+                              M.to(torch.float32).contiguous(),
+                              src.to(torch.float32).contiguous())
+
+
+def solve_fixed_point(M: torch.Tensor, src: torch.Tensor, *, sweeps: int) -> torch.Tensor:
+    """``sweeps`` Neumann sweeps from zero (exact for loop-free routing once
+    ``sweeps`` reaches the longest path)."""
+    return _cp.solve_fixed_point(M.to(torch.float32).contiguous(),
+                                 src.to(torch.float32).contiguous(), sweeps=sweeps)
 
 
 def fused_chain_solve(fact: BatchedLU, base: torch.Tensor, mult: torch.Tensor,

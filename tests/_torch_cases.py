@@ -171,3 +171,350 @@ def stepped_rungs(inst, alpha, n):
         phi = st.phi
     return (torch.stack(costs).double().cpu().numpy(),
             [int(r) for r in torch.stack(rungs).cpu()])
+
+
+# ---------------------------------------------------------------------------
+# Sweep members against the reference's golden runs (torch_ref_sweep.npz)
+# ---------------------------------------------------------------------------
+
+SYNC_TOL = 1e-5      # cost histories agree within this, relative
+# A step's two choices (rungs, or the mixed and the plain candidate) whose
+# costs lie within the histories' own agreement are a tie: the port pins
+# each cost only to SYNC_TOL of the reference's, so the reference's choice
+# between them is not determined at that precision.
+FLIP_TIE = SYNC_TOL
+# The start of a run moved by one float32 ulp (relative), to see where the
+# solve's own trajectory stops being fixed by float32 arithmetic.
+JITTER = 2.0 ** -23
+
+
+def golden_member(z, fig, solver, label):
+    """One member of ``torch_ref_sweep.npz`` as {field: array}, or None."""
+    pre = f"{fig}/{solver}/{label}/"
+    keys = [k for k in z.keys() if k.startswith(pre)]
+    return {k[len(pre):]: z[k] for k in keys} or None
+
+
+def golden_witnesses(z, fig, solver, label, serial=False):
+    """The reference's own other runs of one member, for ``sweep_parity``:
+    ``sparse`` (its other stage solver), ``twin`` (its one-by-one run when
+    the member is held to its batched run, and the other way round) and
+    ``budget`` (its batched run with the stall latch off); None where the
+    golden file has no such run."""
+    base = solver.removesuffix("-serial")
+    return {"sparse": golden_member(z, fig, base + "-sparse", label),
+            "twin": golden_member(z, fig, base if serial else base + "-serial", label),
+            "budget": golden_member(z, fig, base + "-budget", label)}
+
+
+def jittered(masks_fn=None, seed=0):
+    """A ``masks_fn`` for ``scenarios.run_sweep`` whose initial strategy is
+    ``masks_fn``'s (``gp.init_phi``'s without one) with every entry moved
+    by -1, 0 or +1 ulp (``JITTER``, relative; seeded): the same solve from a
+    start that differs only by float32 rounding."""
+    import torch
+    from repro_torch.core import gp
+    from repro_torch.core.traffic import Phi
+
+    def fn(inst):
+        ae, ac, phi = (None, None, gp.init_phi(inst)) if masks_fn is None else masks_fn(inst)
+        g = torch.Generator().manual_seed(seed)
+
+        def move(x):
+            u = torch.randint(-1, 2, x.shape, generator=g).to(x.device, x.dtype)
+            return x * (1 + JITTER * u)
+
+        return ae, ac, Phi(e=move(phi.e), c=move(phi.c))
+    return fn
+
+
+def certify(inst, phi, masks_fn=None):
+    """The cost of a sweep member's final strategy ``phi`` recomputed in
+    float64 on the CPU (the plain versions of the kernels), or None where
+    ``phi`` is not a strategy of the member's problem: a negative entry, a
+    direction outside the topology or ``masks_fn``'s restriction, a row
+    that does not sum to one within 1e-5, or traffic that does not settle.
+    """
+    from repro_torch.core import engine
+    from repro_torch.core.traffic import feasibility_violation
+
+    allowed_e = inst.adj[..., None, None, :, :]
+    allowed_c = inst.cpu_allowed()[..., None]
+    if masks_fn is not None:
+        ae, ac, _ = masks_fn(inst)
+        allowed_e, allowed_c = allowed_e & ae, allowed_c & ac
+
+    inst, phi = _cpu64(inst, phi)
+    allowed_e, allowed_c = allowed_e.cpu(), allowed_c.cpu()
+    ok = (bool((phi.e >= 0).all() and (phi.c >= 0).all())
+          and not bool((phi.e > 0)[~allowed_e.expand(phi.e.shape)].any())
+          and not bool((phi.c > 0)[~allowed_c.expand(phi.c.shape)].any())
+          and float(feasibility_violation(inst, phi)) <= 1e-5)
+    cost = float(engine._strategy_cost(inst, phi)) if ok else None
+    return cost if cost is not None and np.isfinite(cost) else None
+
+
+def _cpu64(inst, phi):
+    """``inst`` and ``phi`` as float64 CPU tensors."""
+    import dataclasses
+
+    from repro_torch.core import network
+    from repro_torch.core.traffic import Phi
+
+    def cpu64(x):
+        x = x.detach().cpu()
+        return x.double() if x.is_floating_point() else x
+
+    return (dataclasses.replace(inst, **{f: cpu64(getattr(inst, f))
+                                         for f in network.DENSE_FIELDS}),
+            Phi(e=cpu64(phi.e), c=cpu64(phi.c)))
+
+
+def local_steps(inst, n, *, alpha, masks_fn=None):
+    """The port's plain GP solve of one member (unpadded ``inst``, on its
+    device, from ``gp.init_phi`` or ``masks_fn``'s start) stepped ``n``
+    times, every latch off, and at each of its iterates the same step
+    recomputed in float64 on the CPU (the plain versions of the kernels).
+
+    Returns ``(costs, worst, same)``: the (n+1,) float32 cost history, the
+    largest relative difference between a float32 step's cost and the
+    float64 step's from the same iterate, and whether every step took the
+    float64 step's rung.  Where these steps are each right to float32
+    precision, two trajectories part only by rounding the map amplifies.
+    """
+    import torch
+    from repro_torch.core import engine, gp
+
+    ae = ac = None
+    phi = gp.init_phi(inst)
+    if masks_fn is not None:
+        ae, ac, phi = masks_fn(inst)
+    ae64, ac64 = (None if m is None else m.cpu() for m in (ae, ac))
+    a32 = torch.tensor(alpha, dtype=torch.float32, device=inst.device)
+    a64 = torch.tensor(alpha, dtype=torch.float64)
+    costs = [float(engine.total_cost(inst, phi))]
+    worst, same = 0.0, True
+    for _ in range(n):
+        st = engine.gp_step(inst, phi, a32, ae, ac)
+        i64, p64 = _cpu64(inst, phi)
+        st64 = engine.gp_step(i64, p64, a64, ae64, ac64)
+        worst = max(worst, abs(float(st.cost) - float(st64.cost)) / abs(float(st64.cost)))
+        same = same and int(st.rung) == int(st64.rung)
+        costs.append(float(st.cost))
+        phi = st.phi
+    return np.asarray(costs), worst, same
+
+
+def _arr(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def _hist(run):
+    return _arr(run["cost_history"] if isinstance(run, dict) else run.cost_history
+                ).astype(np.float64)
+
+
+def _count(run):
+    return int(run["iterations"] if isinstance(run, dict) else run.iterations)
+
+
+def _split(a, b, tol=SYNC_TOL):
+    """(first index where two cost histories part by more than ``tol``
+    relative on their common prefix, or None; largest relative difference
+    on the prefix up to there)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    n = min(len(a), len(b))
+    rel = np.abs(a[:n] - b[:n]) / np.maximum(np.abs(b[:n]), 1e-30)
+    out = np.flatnonzero(~(rel <= tol))
+    split = int(out[0]) if len(out) else None
+    return split, float(rel[:split].max()) if split != 0 else 0.0
+
+
+def departure(a, b):
+    """Where two runs of one member (golden members or ``GPResult``s) stop
+    being one run: the first index where their cost histories part by more
+    than ``SYNC_TOL``, else, where their counts differ, the earlier stop;
+    None for one run."""
+    split, _ = _split(_hist(a), _hist(b))
+    if split is not None:
+        return split
+    ia, ib = _count(a), _count(b)
+    return min(ia, ib) if ia != ib else None
+
+
+def _final_rel(run, ref):
+    if run is None:
+        return 0.0
+    r = float(_hist(ref)[-1])
+    return abs(float(_hist(run)[-1]) - r) / abs(r)
+
+
+def sweep_parity(port, ref, *, max_iters, sparse=None, twin=None, budget=None,
+                 own=(), certify=None, local=None):
+    """Hold one sweep member of the port to the reference's golden run.
+
+    ``port``: the member's trimmed ``GPResult`` solved with ``record=True``
+    (numpy or torch); ``ref``: its golden run (``golden_member``, with the
+    reference's telemetry columns ``rung``/``anderson``); ``sparse``,
+    ``twin``, ``budget``: the reference's own other runs of the member
+    (``golden_witnesses``), or None; ``own``: the port's own other runs of
+    the member (its run from a ``jittered`` start, its batched or
+    one-by-one run), or empty; ``certify``: a callable giving the port's
+    final strategy's cost recomputed in float64, None if that strategy is
+    not one of the problem (``functools.partial(certify, inst, phi,
+    masks_fn)``), or None; ``local``: ``functools.partial(local_steps,
+    inst, alpha=..., masks_fn=...)`` for a plain (not accelerated) member,
+    or None; ``max_iters`` the sweep's budget.
+
+    The contract, whose limit is the determinism of the solve itself:
+      * the cost histories agree within ``SYNC_TOL`` up to their first
+        parting (``split``), or on the whole common prefix;
+      * the port's first departure from the reference (its first decision
+        that differs: winning rung or Anderson acceptance; its first
+        parting; or, where the counts differ, the earlier stop) has a
+        witness:
+          - a decision flip that is a float32 tie (the port's costs of the
+            two choices within ``FLIP_TIE``, relative), after which the two
+            runs are different solves of one problem;
+          - for a count difference alone, the stall latch replayed on each
+            history giving each count, the two first disagreeing where the
+            costs differ by less than its own 1e-6 threshold;
+          - a run that departs as early or earlier from its sibling
+            where the only difference is float32 rounding: the reference's
+            ``sparse`` or ``twin`` run from the reference, or one of the
+            port's ``own`` runs from the port;
+          - for a parting with every decision the reference's up to it, the
+            port's ``local`` steps: replayed, its history up to the parting
+            (within 1e-6), and from each of those iterates the step is the
+            float64 step within ``SYNC_TOL`` and takes its rung, so that
+            only rounding the map amplifies parts the two runs;
+      * the final cost, whatever happened before: at most ``final_tol``
+        above the reference's, ``max(SYNC_TOL, 2 |sparse - ref|,
+        |twin - ref|)`` relative (the reference's own spread on the
+        member), and at most ``final_tol`` below the lowest end point of
+        the reference's own runs of the member (``ref``, ``sparse``,
+        ``twin``, and ``budget``, the same solve without the stall latch,
+        where the port runs longer than the reference); lower still only
+        as a better solution of the same problem that ``certify`` checks:
+        a strategy of the member's (restricted) problem whose float64 cost
+        is the port's final cost within ``SYNC_TOL``.
+    Returns a report dict; ``report["ok"]`` is the verdict and
+    ``report["why"]`` what failed.
+    """
+    hist = _hist(port)
+    rec = {k: _arr(v) for k, v in port.records.items()}
+    it, ref_it = _count(port), _count(ref)
+    rh = _hist(ref)
+    split, prefix = _split(hist, rh)
+    horizon = len(rh) if split is None else split
+    flips, untied = [], []
+    for j in range(min(horizon, it, ref_it)):
+        pr, rr = int(rec["rung"][j]), int(ref["rung"][j])
+        lc = rec["ladder_costs"][j].astype(np.float64)
+        if pr != rr:
+            a, b = lc[pr], lc[rr]
+            flips.append(("rung", j + 1, pr, rr))
+            if not ((a == b) or abs(a - b) <= FLIP_TIE * abs(b)):
+                untied.append(("rung", j + 1, float(a), float(b)))
+        if rec["anderson"][j] != ref["anderson"][j]:
+            plain, mix = lc[pr], float(rec["mix_cost"][j])
+            flips.append(("anderson", j + 1, float(rec["anderson"][j]),
+                          float(ref["anderson"][j])))
+            if not abs(mix - plain) <= FLIP_TIE * abs(plain):
+                untied.append(("anderson", j + 1, mix, float(plain)))
+    events = [flips[0][1]] if flips else []
+    events += [split] if split is not None else []
+    events += [min(it, ref_it)] if it != ref_it else []
+    first = min(events) if events else None
+    selfs = [d for d in (departure(ref, x) for x in (sparse, twin) if x is not None)
+             if d is not None]
+    owns = [d for d in (departure(port, x) for x in own) if d is not None]
+    self_first = min(selfs + owns) if selfs or owns else None
+    self_witness = first is not None and self_first is not None and self_first <= first
+    first_tied = bool(flips) and not (untied and untied[0][1] == flips[0][1])
+    port_stop, port_imp = stall_stop(hist, max_iters=max_iters)
+    ref_stop, ref_imp = stall_stop(rh, max_iters=max_iters)
+    dis = [i for i, (a, b) in enumerate(zip(port_imp, ref_imp), 1) if a != b]
+    stall_witness = bool(port_stop == it and ref_stop == ref_it and dis
+                         and abs(hist[dis[0]] - rh[dis[0]]) < 1e-6 * abs(rh[dis[0]]))
+
+    why, local_witness = [], None
+    if first is not None and not self_witness:
+        if flips and flips[0][1] == first:
+            if not first_tied:
+                why.append(f"first decision flip untied: {untied[0]}")
+        elif split is not None and split == first:
+            if local is not None:
+                costs, worst, same = local(split)
+                replay, _ = _split(costs, hist[:split + 1], tol=1e-6)
+                local_witness = {"replayed": replay is None, "worst_step_rel": worst,
+                                 "rungs_same": same}
+            if not (local_witness and local_witness["replayed"] and same
+                    and worst <= SYNC_TOL):
+                why.append(f"histories part at {split} with no witness ({local_witness})")
+        elif not stall_witness:
+            why.append(f"counts {it} vs {ref_it} with no witness")
+    final_tol = max(SYNC_TOL, 2 * _final_rel(sparse, ref), _final_rel(twin, ref))
+    r_final = float(rh[-1])
+    lows = [sparse, twin] + ([budget] if it > ref_it else [])
+    lo = min([r_final] + [float(_hist(x)[-1]) for x in lows if x is not None])
+    final_rel = abs(hist[-1] - r_final) / abs(r_final)
+    certified = None
+    if hist[-1] > r_final + final_tol * abs(r_final):
+        why.append(f"final cost {float(hist[-1])} above {r_final} + {final_tol} relative")
+    elif hist[-1] < lo - final_tol * abs(lo):
+        certified = certify() if certify is not None else None
+        if certified is None or not abs(certified - hist[-1]) <= SYNC_TOL * abs(hist[-1]):
+            why.append(f"final cost {float(hist[-1])} below {lo} - {final_tol} relative, "
+                       f"not certified ({certified})")
+    return {"ok": not why, "why": why, "iterations": it, "reference_iterations": ref_it,
+            "split": split, "prefix_max_rel": prefix, "final_rel": float(final_rel),
+            "final_tol": final_tol, "final_floor": lo, "certified": certified,
+            "flips": len(flips), "first_flip": flips[0] if flips else None,
+            "untied": untied[:3], "stall_witness": stall_witness,
+            "first_departure": first, "self_departure": self_first,
+            "self_witness": self_witness, "local_witness": local_witness}
+
+
+def chained_parity(results, refs, colds, *, max_iters):
+    """``sweep_parity`` along a warm-started chain (``run_sweep_chained``):
+    member k starts from member k-1's final strategy; ``colds`` are the
+    reference's cold (batched) golden runs of the same members.
+
+    A member that starts where the reference's starts (cost within
+    ``SYNC_TOL``) is held to ``sweep_parity``.  One that starts elsewhere
+    is witnessed by its predecessor having ended on another iterate than
+    the reference's (a decision flip, a parting or another count), and is
+    then held to descent (a finite history that never rises above its
+    start) and to its final cost: within ``max(SYNC_TOL, |cold - ref|)``
+    of the reference's chained run, relative, where ``cold - ref`` is how
+    far the reference's own end point moves when the member starts cold
+    instead of from its predecessor.  Returns one report per member.
+    """
+    reports, prev_moved = [], False
+    for res, ref, cold in zip(results, refs, colds):
+        hist = _hist(res)
+        r0 = float(ref["cost_history"][0])
+        start_rel = abs(hist[0] - r0) / abs(r0)
+        if start_rel <= SYNC_TOL:
+            rep = sweep_parity(res, ref, max_iters=max_iters)
+            moved = bool(rep["flips"] or rep["split"] is not None
+                         or rep["iterations"] != rep["reference_iterations"])
+        else:
+            descent = bool(np.isfinite(hist).all() and hist.max() <= hist[0])
+            final_rel = _final_rel(res, ref)
+            final_tol = max(SYNC_TOL, _final_rel(cold, ref))
+            why = ([] if prev_moved else ["starts elsewhere, predecessor did not"])
+            why += [] if descent else ["history rises above its start"]
+            why += ([] if final_rel <= final_tol
+                    else [f"final cost {final_rel} > {final_tol}"])
+            rep = {"ok": not why, "why": why, "iterations": int(res.iterations),
+                   "reference_iterations": int(ref["iterations"]), "split": 0,
+                   "prefix_max_rel": 0.0, "start_rel": float(start_rel),
+                   "final_rel": final_rel, "final_tol": final_tol,
+                   "flips": None, "first_flip": None, "stall_witness": False}
+            moved = True
+        reports.append(rep)
+        prev_moved = moved
+    return reports

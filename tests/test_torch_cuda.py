@@ -16,7 +16,11 @@ one summation order (its values are held to 1e-5 with the same +inf
 entries, and their largest difference is printed).  The attention and SSD
 kernels: 2e-5 relative to the plain version's largest |value|; a forward
 of a whole (reduced) model through the kernels against the same forward
-through the plain versions: 1e-4.
+through the plain versions: 1e-4.  ``lu_solve`` and ``propagate_step``:
+1e-5 relative (another summation order, fused multiply-adds), a singular
+member's inf/nan kept in that member.  The member-batched sweep against
+the one-by-one solves on the card: final costs within 1e-4 (the
+reference's own bound, ``tests/test_blocked_sets.py``).
 """
 
 import os
@@ -29,6 +33,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import gp, network  # noqa: E402
 from repro_torch.kernels import batched_solve as bs  # noqa: E402
 from repro_torch.kernels import blocked_sets as bset  # noqa: E402
+from repro_torch.kernels import chain_propagate as cp  # noqa: E402
 from repro_torch.core import engine, marginals, traffic  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_solve as ss  # noqa: E402
@@ -399,3 +404,96 @@ def test_short_prefill_forward_on_card(cuda, monkeypatch, S):
     """An SSM prefill shorter than one 128-token chunk, which the SSD wrapper
     pads: S = 32 is the edge-serving example's packet."""
     _forward_on_card(monkeypatch, cuda, "mamba2-780m", S)
+
+
+# ---------------------------------------------------------------------------
+# lu_solve, propagate_step and the member-batched solve
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("trans", [0, 1])
+@pytest.mark.parametrize("V", [1, 31, 100, 240])
+def test_lu_solve_kernel_matches_plain(cuda, V, trans):
+    rng = np.random.default_rng(V + 1000 * trans)
+    B = 6
+    mats = stage_mats(rng, B, V, loopy=(2,) if V > 1 else ())
+    lu = bs.lu_factor_plain(torch.from_numpy(mats).to(cuda)).contiguous()
+    rhs = torch.from_numpy(rng.uniform(-1.0, 2.0, (B, V)).astype(np.float32)).to(cuda)
+    got = bs.lu_solve(lu, rhs, trans=trans)
+    want = bs.lu_solve_plain(lu, rhs, trans=trans)
+    torch.cuda.synchronize()
+    ok = bs.factor_ok(lu)
+    assert _rel(got[ok], want[ok]) <= 1e-5
+    assert torch.equal(torch.isfinite(got).all(-1), torch.isfinite(want).all(-1))
+    if V > 1:
+        assert not ok[2] and not torch.isfinite(got[2]).all()
+
+
+def test_batched_solve_flags_a_singular_member_on_card(cuda):
+    rng = np.random.default_rng(11)
+    mats = stage_mats(rng, 6, 23, loopy=(2,))
+    m = torch.from_numpy(mats).to(cuda)
+    rhs = torch.from_numpy(rng.uniform(0.0, 1.0, (6, 23)).astype(np.float32)).to(cuda)
+    for trans in (0, 1):
+        ops.reset_launch_counts()
+        x, resid = ops.batched_solve(m, rhs, trans=trans)
+        assert ops.launch_counts()["lu_solve"] == 1
+        good = torch.arange(6, device=cuda) != 2
+        a = m.transpose(-1, -2) if trans else m
+        want = torch.linalg.solve(a[good], rhs[good])
+        assert _rel(x[good], want) <= 1e-5
+        assert torch.isinf(resid[2]) and (resid[good] < 1e-5).all()
+
+
+@pytest.mark.parametrize("V", [1, 31, 100, 240])
+def test_propagate_step_kernel_matches_plain(cuda, V):
+    rng = np.random.default_rng(V)
+    S = 9
+    t = torch.from_numpy(rng.uniform(0, 1, (S, V)).astype(np.float32)).to(cuda)
+    M = torch.from_numpy(rng.uniform(0, 0.2, (S, V, V)).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.uniform(0, 1, (S, V)).astype(np.float32)).to(cuda)
+    got = cp.propagate_step(t, M, src)
+    want = cp.propagate_step_plain(t, M, src)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    fp = ops.solve_fixed_point(M * (1.0 / max(V, 1)), src, sweeps=8)
+    want_fp = src.clone() * 0
+    for _ in range(8):
+        want_fp = cp.propagate_step_plain(want_fp, M * (1.0 / max(V, 1)), src)
+    assert _rel(fp, want_fp) <= 1e-5
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.lu_solve(torch.eye(241, device=cuda)[None].contiguous(),
+                    torch.zeros((1, 241), device=cuda))
+    with pytest.raises(ValueError):
+        bs.lu_solve(torch.eye(8, device=cuda)[None].contiguous(),
+                    torch.zeros((1, 7), device=cuda))
+    with pytest.raises(TypeError):
+        cp.propagate_step(torch.zeros((2, 4), device=cuda, dtype=torch.float64),
+                          torch.zeros((2, 4, 4), device=cuda),
+                          torch.zeros((2, 4), device=cuda))
+    with pytest.raises(ValueError):
+        cp.propagate_step(torch.zeros((2, 4), device=cuda),
+                          torch.zeros((2, 4, 5), device=cuda),
+                          torch.zeros((2, 4), device=cuda))
+
+
+@pytest.mark.parametrize("solver", ["GP", "SPOC", "LCOF"])
+def test_batched_sweep_matches_serial_on_card(cuda, solver):
+    """The Table II six as run_sweep groups them (padded, member-batched)
+    against one gp.solve per member, 30 iterations with every latch off:
+    final costs within 1e-4."""
+    from repro_torch.core import baselines, scenarios
+
+    fam = [sc for sc in scenarios.expand("fig5")
+           if sc.label in scenarios.SMALL_TABLE_II]
+    kw = dict(alpha=0.1, max_iters=30, tol=-1.0, patience=10**6,
+              masks_fn=baselines.BASELINE_MASKS.get(solver))
+    bat = scenarios.run_sweep(fam, **kw)
+    ser = scenarios.run_sweep_serial(fam, **kw)
+    assert bat.n_batches == 2
+    for sc, b, s in zip(fam, bat.results, ser.results):
+        assert b.iterations == s.iterations == 30, sc.label
+        rel = abs(b.final_cost - s.final_cost) / abs(s.final_cost)
+        assert rel <= 1e-4, (sc.label, b.final_cost, s.final_cost)

@@ -46,10 +46,9 @@ def test_instance_bit_equal(name, seed):
 
 
 def test_topologies_match_reference():
-    for name in ["balanced-tree", "fog", "abilene", "lhc", "geant", "sw"]:
+    for name in ["connected-er", "balanced-tree", "fog", "abilene", "lhc",
+                 "geant", "sw"]:
         assert np.array_equal(jnet.TOPOLOGIES[name](), tnet.TOPOLOGIES[name]()), name
-    with pytest.raises(NotImplementedError):
-        tnet.table_ii_instance("connected-er", device="cpu")
 
 
 def _rel(a, b):
