@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check what it computes.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev DIR]
 
 Runs from the root of a checkout and needs one card; it builds the port's
 CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
-``build/repro_torch_kernels/``.  One JSON line per phase:
+``build/repro_torch_kernels/``.  ``--prev DIR`` names a directory holding
+earlier ``batched_lu.cu``, ``chain_solve.cu`` and ``two_sweep.cuh`` (for
+example PR 14's, unpacked with ``git show``): they are built beside the
+others and timed against the redesigned kernels in the ``kernel`` phase.
+One JSON line per phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
-  2. build   — the nine kernels, one ``nvcc`` each, all started together.
+  2. build   — the nine kernels, one ``nvcc`` each, all started together
+     (with ``--prev``, the two earlier sources too); ``ptxas`` registers and
+     spills of each kernel.
   3. kernels — each kernel against its plain PyTorch version on the card, at
      the shapes Algorithm 1 gives it on sw-queue (V=100, 30 apps, 3 stages),
      on the inputs of a 10-iteration iterate and its ladder candidates:
@@ -16,12 +22,23 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
      chain_solve for the traffic sweep (30 chains, trans=1), the marginal
      sweep (30 chains, trans=0, reverse, clamp) and the ladder (360 chains);
      tagged at B=90.  Float kernels within 1e-5 relative (they sum in
-     another order and fuse multiply-adds), tagged bit-exact.  ``ms`` is
+     another order and fuse multiply-adds), tagged bit-exact; ``lu_factor``'s
+     own ``ok`` flags equal to ``factor_ok`` of its factors.  With
+     ``--prev``, ``lu_factor`` and ``chain_solve`` also against their earlier
+     versions on the same inputs: output bytes equal, and ``prev_ms`` the
+     earlier kernel's device time per launch, timed in turns (earlier, new,
+     new, earlier; ``abba_ms``).  ``ms`` is
      the kernel's device time per launch from ``torch.profiler`` (the
      per-call event time if the trace shows no device events);
      ``event_ms``, ``plain_ms`` and ``library_ms`` are per call: CUDA
      events around a run of back-to-back calls, median of 25 runs after a
      warm-up.
+  3b. digests — ``lu_factor`` (factors and ``ok``) and ``chain_solve`` on
+     every case of ``tests/data/torch_card_dense_digests.json`` (the card
+     digests of PR 14's kernels; the register and shared-memory variants of
+     ``lu_factor``, V from 1 to 240): output bytes equal to the digests,
+     within 1e-5 of the plain versions; a mismatch names the outputs and the
+     largest difference against the plain version.
   4. solve   — the main path, ``gp.solve(table_ii_instance("sw-queue"),
      alpha=0.1, max_iters=400)`` on the card, with every kernel's launch
      count set to 0 just before and read just after; then held against the
@@ -131,11 +148,12 @@ Then the ``kernels`` line (each kernel's ``launches`` counted over the
 main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
-``propagate_step``, which lie on no solver path), the card's
-``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
-check raises, and the script exits non-zero without the last line.
-Without CUDA, or without the rest of the repository, it exits non-zero at
-once.
+``propagate_step``, which lie on no solver path; ``prev_ms`` and
+``redesigned_in`` for the two kernels redesigned in PR 15, null for the
+others and without ``--prev``), the card's ``nvidia-smi`` line, and the
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
+and the script exits non-zero without the last line.  Without CUDA, or
+without the rest of the repository, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -155,6 +173,7 @@ GOLDEN = os.path.join(TESTS, "data", "torch_ref_sw_queue.json")
 GOLDEN_METRO = os.path.join(TESTS, "data", "torch_ref_metro_sw1000.npz")
 GOLDEN_EDGE = os.path.join(TESTS, "data", "torch_ref_edge.json")
 GOLDEN_SWEEP = os.path.join(TESTS, "data", "torch_ref_sweep.npz")
+DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_digests.json")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -267,17 +286,101 @@ def phase_device():
     return smi
 
 
-def phase_build():
+# The sources of the two kernels redesigned in PR 15, built from their
+# earlier versions (``--prev DIR``) to be timed beside the new ones.
+PREV_SOURCES = ("batched_lu", "chain_solve")
+PREV_BUILD = os.path.join(HERE, "build", "prev_kernels")
+
+
+def phase_build(prev_dir=None):
+    """Build the nine kernels (one ``nvcc`` each, all at once); with
+    ``prev_dir``, also the earlier ``batched_lu.cu`` and ``chain_solve.cu``
+    found there, alongside."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
+    prev = {}
+    if prev_dir:
+        os.makedirs(PREV_BUILD, exist_ok=True)
+        for src in PREV_SOURCES:
+            out = os.path.join(PREV_BUILD, f"{src}.so")
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out,
+                   os.path.join(prev_dir, f"{src}.cu")]
+            prev[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
     report = _build.build_all()
+    for src, proc in prev.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc of the earlier {src}.cu:\n{log}")
     ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, r in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {n: r["seconds"] for n, r in report.items()},
-          "ptxas": ptxas, "dir": str(_build.BUILD_DIR)})
+          "ptxas": ptxas, "dir": str(_build.BUILD_DIR),
+          "prev": sorted(prev) if prev else None})
+    return PrevKernels() if prev else None
+
+
+class PrevKernels:
+    """The earlier ``lu_factor`` and ``chain_solve`` kernels (their own C
+    entry points, loaded with ctypes from ``build/prev_kernels``)."""
+
+    def __init__(self):
+        import ctypes
+
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        self._lu = ctypes.CDLL(os.path.join(PREV_BUILD, "batched_lu.so")).repro_lu_factor
+        self._lu.argtypes, self._lu.restype = [vp, vp, i, i, vp], i
+        self._chain = ctypes.CDLL(os.path.join(PREV_BUILD, "chain_solve.so")).repro_chain_solve
+        self._chain.argtypes, self._chain.restype = [vp] * 4 + [i] * 6 + [vp], i
+
+    @staticmethod
+    def _stream():
+        import torch
+
+        return torch.cuda.current_stream().cuda_stream
+
+    def lu_factor(self, mats):
+        import torch
+
+        out = torch.empty_like(mats)
+        B, V, _ = mats.shape
+        require(self._lu(mats.data_ptr(), out.data_ptr(), B, V, self._stream()) == 0,
+                "earlier lu_factor launch")
+        return out
+
+    def chain_solve(self, lu, base, mult, *, trans=0, reverse=False, clamp=False):
+        import torch
+
+        out = torch.empty_like(base)
+        B, K, V = base.shape
+        require(self._chain(lu.data_ptr(), base.data_ptr(), mult.data_ptr(), out.data_ptr(),
+                            B, K, V, int(trans), int(reverse), int(clamp),
+                            self._stream()) == 0, "earlier chain_solve launch")
+        return out
+
+
+def _versus_prev(prev, old_fn, new_fn, new_out, symbol, what) -> dict:
+    """The redesigned kernel against its earlier version on the same
+    inputs: outputs bit-equal, and device ms per launch timed in turns
+    (old, new, new, old); ``prev_ms`` the mean of the two old times."""
+    import torch
+
+    if prev is None:
+        return {"prev_ms": None, "redesigned_in": "PR 15"}
+    old_out = old_fn()
+    require(torch.equal(old_out.view(torch.int32), new_out.view(torch.int32)),
+            f"{what}: bit-equal to the earlier kernel")
+
+    def dev_ms(fn):
+        ms = kernel_ms(fn, symbol)
+        return time_ms(fn) if ms is None else ms
+
+    abba = [dev_ms(old_fn), dev_ms(new_fn), dev_ms(new_fn), dev_ms(old_fn)]
+    prev_ms = (abba[0] + abba[3]) / 2
+    return {"prev_ms": prev_ms, "abba_ms": abba, "speedup": prev_ms / ((abba[1] + abba[2]) / 2),
+            "bit_equal_prev": True, "redesigned_in": "PR 15"}
 
 
 def _tagged_rounds(route_bits, imp_bits):
@@ -300,8 +403,10 @@ def _tagged_rounds(route_bits, imp_bits):
     return int(rounds.sum())
 
 
-def phase_kernels():
-    """Each kernel vs its plain version at the main path's shapes."""
+def phase_kernels(prev=None):
+    """Each kernel vs its plain version at the main path's shapes; with
+    ``prev`` (the earlier kernels), the two redesigned ones also against
+    their earlier versions, bit for bit and in time."""
     import torch
     from repro_torch.core import engine, gp, marginals, network, traffic
     from repro_torch.kernels import batched_solve as bs
@@ -321,9 +426,10 @@ def phase_kernels():
     for label, pe in (("iterate", phi.e), ("ladder", cands.e)):
         mats = (eye - pe).reshape(-1, V, V).contiguous()
         B = mats.shape[0]
-        got, want = bs.lu_factor(mats), bs.lu_factor_plain(mats)
+        (got, ok_kernel), want = bs.lu_factor(mats, with_ok=True), bs.lu_factor_plain(mats)
         ok_got, ok_want = bs.factor_ok(got), bs.factor_ok(want)
         require(torch.equal(ok_got, ok_want), f"lu_factor {label}: ok flags")
+        require(torch.equal(ok_kernel, ok_got), f"lu_factor {label}: kernel ok = factor_ok")
         good = ok_want.nonzero().squeeze(-1)
         abs_e, rel_e = rel_err(got[good], want[good])
         require(rel_e <= 1e-5, f"lu_factor {label}: rel err {rel_e}")
@@ -334,7 +440,11 @@ def phase_kernels():
                **timed(lambda: bs.lu_factor(mats), "lu_kernel"),
                "plain_ms": time_ms(lambda: bs.lu_factor_plain(mats)),
                "library_ms": time_ms(lambda: torch.linalg.lu_factor(mats)),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "variant": bs.lu_factor_plan(V)["variant"],
+               **_versus_prev(prev, lambda: prev.lu_factor(mats),
+                              lambda: bs.lu_factor(mats), got, "lu_kernel",
+                              f"lu_factor {label}")}
         emit({"phase": "kernel", "name": "lu_factor", "case": label, **row})
         lu_rows.append(row)
     results["lu_factor"] = lu_rows
@@ -370,7 +480,10 @@ def phase_kernels():
                "max_abs_err": abs_e, "max_rel_err": rel_e,
                **timed(lambda: bs.chain_solve(lu, b2, m2, **kw), "chain_kernel"),
                "plain_ms": time_ms(lambda: bs.chain_solve_plain(lu, b2, m2, **kw)),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               **_versus_prev(prev, lambda: prev.chain_solve(lu, b2, m2, **kw),
+                              lambda: bs.chain_solve(lu, b2, m2, **kw), got,
+                              "chain_kernel", f"chain_solve {label}")}
         emit({"phase": "kernel", "name": "chain_solve", "case": label, **row})
         chain_rows.append(row)
     results["chain_solve"] = chain_rows
@@ -412,6 +525,32 @@ def phase_kernels():
     results["tagged"] = tag_rows
     ops.reset_launch_counts()
     return results
+
+
+def phase_digests():
+    """The dense route's two kernels held to the card digests of the
+    kernels they were redesigned from (``tests/data/
+    torch_card_dense_digests.json``): every case's output bytes equal, the
+    kernel's ``ok`` equal to ``factor_ok``, within 1e-5 of the plain
+    version.  On a mismatch the line gives the largest difference against
+    the plain version."""
+    from _torch_cases import case_id, check_dense_digest, dense_digest_cases
+    from repro_torch.kernels import batched_solve as bs
+    from repro_torch.kernels import ops
+
+    with open(DIGESTS) as fh:
+        refs = {case_id(c): c for c in json.load(fh)["cases"]}
+    failed = []
+    for case in dense_digest_cases():
+        rep = check_dense_digest(case, refs[case_id(case)])
+        if case["kernel"] == "lu_factor":
+            rep["variant"] = bs.lu_factor_plan(case["V"])["variant"]
+        emit({"phase": "digests", **rep})
+        if not (rep["inputs_equal"] and rep["outputs_equal"] and rep["finite_equal"]
+                and rep.get("ok_equal", True) and rep["max_rel_err"] <= 1e-5):
+            failed.append(rep["case"])
+    require(not failed, f"digests: {failed}")
+    ops.reset_launch_counts()
 
 
 def _rel_hist(got, want) -> float:
@@ -1499,8 +1638,17 @@ def phase_sweep_profile():
               "top": [[k[:80], v] for v, k in top[:8]]})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--prev", metavar="DIR",
+                    help="a directory holding the earlier batched_lu.cu, chain_solve.cu "
+                         "and two_sweep.cuh: build them and time them beside the "
+                         "redesigned kernels (prev_ms)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1508,7 +1656,7 @@ def main() -> int:
     src = os.path.join(HERE, "src")
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
-                                                   GOLDEN_SWEEP))):
+                                                   GOLDEN_SWEEP, DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -1522,8 +1670,9 @@ def main() -> int:
     with open(GOLDEN_EDGE) as fh:
         ref_edge = json.load(fh)
     smi = phase_device()
-    phase_build()
-    kernels = phase_kernels()
+    prev = phase_build(args.prev)
+    kernels = phase_kernels(prev)
+    phase_digests()
     launches, ms_per_step = phase_solve(ref)
     phase_profile(ms_per_step)
     phase_parity(ref)
@@ -1579,6 +1728,8 @@ def main() -> int:
                      "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"],
+                     "prev_ms": main_row.get("prev_ms"),
+                     "redesigned_in": main_row.get("redesigned_in"),
                      "shape": main_row["shape"], "cases": rows})
     emit({"kernels": line})
     print(smi, flush=True)

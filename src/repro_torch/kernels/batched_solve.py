@@ -39,16 +39,46 @@ from repro_torch.kernels import _build
 PIVOT_TINY = 1e-30
 
 
-def _smem_lu(V: int) -> int:
-    return 4 * V * (V | 1)
+# lu_factor holds a matrix in registers up to this V (16 x 16 threads of
+# at most 8 x 8 values each), in shared memory above it.
+REG_TILE_MAX_V = 128
+LU_THREADS = 256
+CHAIN_THREADS = 128
 
 
 def _smem_solve(V: int) -> int:
     return 4 * (V * (V | 1) + V)
 
 
-def _smem_chain(V: int) -> int:
-    return 4 * (V * (V | 1) + 2 * V)
+def lu_factor_plan(V: int) -> dict:
+    """How :func:`lu_factor` launches at node count V.
+
+    ``variant``: "registers" (V <= 128; ``tiles`` = ceil(V / 16) values per
+    thread and dimension; in shared memory the published row, column and
+    multipliers, 4 x 128 floats, and the V x (V | 1) tile the factor leaves
+    through) or "shared" (the V x (V | 1) tile factored in shared memory).
+    Raises where the tile does not fit (V > 241).
+    """
+    tile = 4 * V * (V | 1)
+    if V <= REG_TILE_MAX_V:
+        plan = {"variant": "registers", "threads": LU_THREADS, "tiles": -(-V // 16),
+                "smem_bytes": 4 * 4 * REG_TILE_MAX_V + tile}
+    else:
+        plan = {"variant": "shared", "threads": LU_THREADS, "tiles": None,
+                "smem_bytes": tile}
+    _check_smem(plan["smem_bytes"], V, "lu_factor")
+    return plan
+
+
+def chain_solve_plan(V: int) -> dict:
+    """How :func:`chain_solve` launches at node count V: ``chunks`` =
+    ceil(V / 32) values of the forward sweep's y per lane; the factor,
+    right-hand side, iterate and 2 x 32 gathered partials in shared memory.
+    Raises where they do not fit (V > 239)."""
+    plan = {"threads": CHAIN_THREADS, "chunks": -(-V // 32),
+            "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)}
+    _check_smem(plan["smem_bytes"], V, "chain_solve")
+    return plan
 
 
 def _check_cuda(x: torch.Tensor, name: str, ndim: int) -> None:
@@ -88,28 +118,32 @@ def lu_factor_plain(mats: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def lu_factor(mats: torch.Tensor) -> torch.Tensor:
-    """Unpivoted LU of a (B, V, V) float32 batch -> packed (B, V, V) factors.
+def lu_factor(mats: torch.Tensor, *, with_ok: bool = False):
+    """Unpivoted LU of a (B, V, V) float32 batch -> packed (B, V, V) factors,
+    and with ``with_ok`` also the (B,) bool :func:`factor_ok` flags.
 
-    CUDA tensor: one launch of ``csrc/batched_lu.cu``.  CPU tensor: the
-    plain version.
+    CUDA tensor: one launch of ``csrc/batched_lu.cu`` (the variant of
+    :func:`lu_factor_plan`), which writes the flags beside the factors.
+    CPU tensor: the plain version and :func:`factor_ok`.
     """
     if mats.device.type == "cpu":
-        return lu_factor_plain(mats)
+        lu = lu_factor_plain(mats)
+        return (lu, factor_ok(lu)) if with_ok else lu
     _check_cuda(mats, "lu_factor", 3)
     B, V, V2 = mats.shape
     if V != V2:
         raise ValueError(f"lu_factor: matrices must be square, got {tuple(mats.shape)}")
-    _check_smem(_smem_lu(V), V, "lu_factor")
+    variant = 0 if lu_factor_plan(V)["variant"] == "registers" else 1
     out = torch.empty_like(mats)
+    ok = torch.empty(B, dtype=torch.bool, device=mats.device)
     fn = _build.function("batched_lu", "repro_lu_factor",
-                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(mats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(mats.data_ptr(), out.data_ptr(), B, V, stream)
+        rc = fn(mats.data_ptr(), out.data_ptr(), ok.data_ptr(), B, V, variant, stream)
     _build.check("batched_lu", rc, "lu_factor")
     lu_factor.launches += 1
-    return out
+    return (out, ok) if with_ok else out
 
 
 lu_factor.launches = 0
@@ -120,7 +154,8 @@ def factor_ok(lu: torch.Tensor) -> torch.Tensor:
 
     Not ok: a non-finite entry, or a ~zero U pivot.  The batched analogue
     of LAPACK's ``info``; flagged members carry inf/nan forward to
-    ``traffic_is_valid`` instead of raising.
+    ``traffic_is_valid`` instead of raising.  The plain version of the
+    flags ``csrc/batched_lu.cu`` writes beside the factors.
     """
     diag = torch.diagonal(lu, dim1=-2, dim2=-1)
     finite = torch.isfinite(lu).all(dim=-1).all(dim=-1)
@@ -219,8 +254,8 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
     """Fused chain solve: lu (B, K, V, V), base/mult (B, K, V) -> (B, K, V).
 
     CUDA tensors: one launch of ``csrc/chain_solve.cu``, one block per
-    chain.  CPU tensors: the plain version.  Identity row permutation
-    (the factors of :func:`lu_factor`).
+    chain (:func:`chain_solve_plan`).  CPU tensors: the plain version.
+    Identity row permutation (the factors of :func:`lu_factor`).
     """
     if lu.device.type == "cpu":
         return chain_solve_plain(lu, base, mult, trans=trans, reverse=reverse,
@@ -235,7 +270,7 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
             f"{tuple(base.shape)}, mult {tuple(mult.shape)} do not agree")
     if base.device != lu.device or mult.device != lu.device:
         raise ValueError("chain_solve: all inputs must be on one device")
-    _check_smem(_smem_chain(V), V, "chain_solve")
+    chain_solve_plan(V)
     out = torch.empty_like(base)
     fn = _build.function("chain_solve", "repro_chain_solve",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

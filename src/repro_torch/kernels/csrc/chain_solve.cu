@@ -11,17 +11,47 @@
 //
 // What bounds it: each stage reads a V x V factor once and does 2 V^2
 // flops with it (two triangular sweeps), 0.5 flop per byte, so the bound
-// is device-memory traffic (sw-queue: B = 30, 30 and 360 chains of K = 3
-// stages at V = 100).  Inside a stage the substitution is a chain of V
-// dependent row steps per sweep, so latency, not bandwidth, is what a
-// single chain waits on.
+// is device-memory traffic: 0.0133 ms for the sw-queue ladder's 360 chains
+// of K = 3 stages at V = 100, 0.0011 ms for the 30 chains of the traffic
+// and marginal sweeps.  But a chain is 2 K V dependent row steps, so what
+// a launch waits on is the latency of one row step times 2 K V.
 //
-// Design: one thread block per chain.  The block's warps load the stage's
-// factor into shared memory with coalesced row reads; x_prev and the
-// right-hand side stay in shared memory across the K stages, so the
-// sequential chain never leaves the SM.  Warp 0 then runs both sweeps
-// (two_sweep.cuh: one warp-reduced dot product per row; trans=1 reads the
-// factor by column).  Many chains run concurrently, one block each.
+// What held the earlier design back (PR 14: one 128-thread block per chain,
+// warp 0 running two_sweep.cuh while three warps idle; 0.285 ms for 360
+// chains, 0.249 for 30 with trans=1, 0.213 for the 30 marginal ones, on an
+// NVIDIA H100 80GB HBM3 at 700 W): per row, a lane-strided dot product
+// reading y from shared memory, a five-level __shfl_xor tree, lane 0's
+// subtraction and division, a store to shared memory and a __syncwarp,
+// and the next row read that store back, all on the critical path; 360
+// chains took no longer than 30.  Each stage's factor load waited behind
+// the previous stage.
+//
+// Design, one 128-thread block per chain as before, with the same float
+// operations in the same order (each lane sums its terms in ascending j
+// with one FMA each from 0; the xor tree 16, 8, 4, 2, 1; the subtraction
+// and the IEEE division), so the results are bit-equal to PR 14's:
+//   * the tree without shuffles on the critical path: a row's partials
+//     except the one lane that adds the newest y are known a row early.
+//     They are gathered through shared memory in the row before (gather()
+//     below), every lane forms the five subtree sums the butterfly joins to
+//     the late lane's partial, and the row's sum is the newest FMA and five
+//     dependent adds; every lane then has the same y_i, so nothing is stored
+//     and read back between rows;
+//   * the forward sweep keeps y in registers (lane l holds y_j for
+//     j = l mod 32, NC = ceil(V / 32) a template parameter) and walks its
+//     factor operands by pointer; the backward sweep's lanes take
+//     j = i+1+l mod 32, which moves with i, so it reads older y from shared
+//     memory, y_{i+1} from a register;
+//   * trans is a template parameter of the sweeps, so each loop is one
+//     straight run of instructions;
+//   * the factor is loaded with 16-byte reads where V is a multiple of 4
+//     (cp.async otherwise), and while warp 0 sweeps stage k the three other
+//     warps prefetch stage k+1's factor into L2.  A second shared buffer
+//     would overlap the copy itself, but two 40 KB buffers allow 2 blocks
+//     per SM, 264 slots, fewer than the ladder's 360 chains: a second wave.
+// Shared memory: the factor (V x (V | 1): the odd stride keeps the column
+// reads of trans=1 on distinct banks), the right-hand side, the iterate
+// and 2 x 32 floats for the gathered partials, which caps V at 239.
 //
 // Identity row permutation assumed (the unpivoted factors of batched_lu.cu).
 // IEEE division; the clamp is written so that NaN propagates as
@@ -29,47 +59,269 @@
 
 #include <cuda_runtime.h>
 
-#include "two_sweep.cuh"
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunks = 8;   // V <= 256 (shared memory caps it at 239)
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// The xor tree's node over slots {s ^ (offsets 2h .. 16)} of x, as the
+// butterfly forms it (float addition is commutative, so each pair's order
+// does not matter): Node<32, s> is x[s], Node<h, s> adds the two halves.
+template <int H, int S>
+struct Node {
+  static __device__ __forceinline__ float sum(const float* x) {
+    return Node<2 * H, S>::sum(x) + Node<2 * H, (S ^ H)>::sum(x);
+  }
+};
+template <int S>
+struct Node<32, S> {
+  static __device__ __forceinline__ float sum(const float* x) { return x[S]; }
+};
+
+// A row's 32 lane partials without its newest term, gathered for the tree.
+// Lane l stores its partial in slot l ^ o, o the lane that will add the
+// newest term, so slot 0 is o's partial and the subtrees the butterfly
+// joins to it, offsets 16, 8, 4, 2, 1, are fixed slot sets.  Every lane
+// reads all 32 slots and forms the same five subtree sums: the row's sum
+// is then ((((x_o + a16) + a8) + a4) + a2) + a1, the butterfly's own
+// result, five dependent adds after the newest term instead of five
+// shuffle-and-add levels.
+struct Gathered {
+  float x0, a16, a8, a4, a2, a1;
+};
+
+__device__ __forceinline__ Gathered gather(float* red, float partial, int lane, int o) {
+  red[lane ^ o] = partial;
+  __syncwarp();
+  float x[32];
+  const float4* r4 = reinterpret_cast<const float4*>(red);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float4 w = r4[t];
+    x[4 * t] = w.x;
+    x[4 * t + 1] = w.y;
+    x[4 * t + 2] = w.z;
+    x[4 * t + 3] = w.w;
+  }
+  return {x[0], Node<32, 16>::sum(x), Node<16, 8>::sum(x), Node<8, 4>::sum(x),
+          Node<4, 2>::sum(x), Node<2, 1>::sum(x)};
+}
+
+__device__ __forceinline__ float tree_sum(float xo, const Gathered& g) {
+  return ((((xo + g.a16) + g.a8) + g.a4) + g.a2) + g.a1;
+}
+
+// Forward sweep (unit-lower L for TR=0, U^T with its diagonal for TR=1)
+// on y in place; the result is in y on return (after __syncwarp).
+template <int NC, int TR>
+__device__ __forceinline__ void forward_sweep(const float* m, int ld, float* y, int V, int lane,
+                                              float* red) {
+  float yv[NC];
+#pragma unroll
+  for (int t = 0; t < NC; ++t) yv[t] = 0.f;
+  Gathered g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // row 0 has no terms
+  float mlast = 0.f;   // this row's entry at column i-1 (the newest term)
+  float ylast = 0.f;   // y_{i-1}
+  float b = y[0];
+  float d = m[0];
+  const int step = TR ? 1 : ld;
+  const float* pm[NC];
+#pragma unroll
+  for (int t = 0; t < NC; ++t) {
+    const int jc = min(32 * t + lane, V - 1);
+    pm[t] = TR ? m + jc * ld + 1 : m + ld + jc;
+  }
+  const float* pmn = TR ? m + 1 : m + ld;   // M(n, i)
+  const float* pdn = m + ld + 1;            // M(n, n)
+  const float* pbn = y + 1;                 // y[n]
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    for (int r = 0; r < 32; ++r) {
+      const int i = 32 * c + r;
+      if (i >= V) break;
+      float mv[NC];
+#pragma unroll
+      for (int t = 0; t <= c; ++t) mv[t] = *pm[t];
+      const float mn = *pmn, dn = *pdn, bn = *pbn;
+      // the critical path: the newest term, the tree's five adds
+      const float xo = i > 0 ? fmaf(mlast, ylast, g.x0) : g.x0;
+      const float acc = tree_sum(xo, g);
+      // off it: row i+1's partials without y_i, gathered
+      float pn = 0.f;
+#pragma unroll
+      for (int t = 0; t <= c; ++t) pn = (t < c || lane < r) ? fmaf(mv[t], yv[t], pn) : pn;
+      g = gather(red + ((i & 1) << 5), pn, lane, i & 31);
+      const float yi = TR ? (b - acc) / d : b - acc;
+      if (lane == r) yv[c] = yi;
+#pragma unroll
+      for (int t = 0; t < NC; ++t) pm[t] += step;
+      pmn += ld + 1;
+      pdn += ld + 1;
+      pbn += 1;
+      mlast = mn;
+      ylast = yi;
+      b = bn;
+      d = dn;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NC; ++t) {
+    const int j = 32 * t + lane;
+    if (j < V) y[j] = yv[t];
+  }
+  __syncwarp();
+}
+
+// Backward sweep (U with its diagonal for TR=0, unit-upper L^T for TR=1)
+// on y in place.
+template <int NC, int TR>
+__device__ __forceinline__ void backward_sweep(const float* m, int ld, float* y, int V, int lane,
+                                               float* red) {
+  Gathered g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // row V-1 has no terms
+  float ylast = 0.f;     // y_{i+1}
+  float m0 = 0.f;        // lane 0's operands for this row: M(i, i+1+32t),
+  float ml[NC], yl[NC];  // and y_{i+1+32t} for t >= 1
+#pragma unroll
+  for (int t = 0; t < NC; ++t) ml[t] = yl[t] = 0.f;
+  float b = y[V - 1];
+  float d = m[(V - 1) * ld + V - 1];
+  for (int i = V - 1; i >= 0; --i) {
+    const int n = max(i - 1, 0);
+    float mv[NC], yw[NC], m0n, mln[NC], yln[NC];
+#pragma unroll
+    for (int t = 0; t < NC; ++t) {
+      const int jc = min(i + lane + 32 * t, V - 1);
+      mv[t] = TR ? m[jc * ld + n] : m[n * ld + jc];
+      yw[t] = (lane == 1 && t == 0) ? ylast : y[jc];
+      const int j0 = min(i + 32 * t, V - 1);
+      mln[t] = TR ? m[j0 * ld + n] : m[n * ld + j0];
+      yln[t] = y[j0];
+    }
+    m0n = mln[0];
+    const float bn = y[n];
+    const float dn = m[n * ld + n];
+    // the critical path: lane 0's terms, newest first, the tree's five adds
+    float a0 = (i + 1 < V) ? fmaf(m0, ylast, 0.f) : 0.f;
+#pragma unroll
+    for (int t = 1; t < NC; ++t) a0 = (i + 1 + 32 * t < V) ? fmaf(ml[t], yl[t], a0) : a0;
+    const float acc = tree_sum(a0, g);
+    // off it: row i-1's partials of lanes >= 1, gathered
+    float pn = 0.f;
+#pragma unroll
+    for (int t = 0; t < NC; ++t) pn = (i + lane + 32 * t < V) ? fmaf(mv[t], yw[t], pn) : pn;
+    g = gather(red + ((i & 1) << 5), pn, lane, 0);
+    const float yi = TR ? b - acc : (b - acc) / d;
+    y[i] = yi;    // read two rows on, after the next row's gather barrier
+    m0 = m0n;
+#pragma unroll
+    for (int t = 1; t < NC; ++t) {
+      ml[t] = mln[t];
+      yl[t] = yln[t];
+    }
+    ylast = yi;
+    b = bn;
+    d = dn;
+  }
+  __syncwarp();
+}
+
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-chain_kernel(const float* __restrict__ lu, const float* __restrict__ base,
-             const float* __restrict__ mult, float* __restrict__ x_out,
-             int K, int V, int ld, int trans, int reverse, int clamp) {
+chain_kernel_pipelined(const float* __restrict__ lu, const float* __restrict__ base,
+                       const float* __restrict__ mult, float* __restrict__ x_out,
+                       int K, int V, int ld, int trans, int reverse, int clamp, int vec) {
   extern __shared__ float s[];
-  float* m = s;             // (V, ld) factor of the current stage
-  float* xv = m + V * ld;   // (V,) x_prev, then this stage's solution
-  float* y = xv + V;        // (V,) right-hand side, solved in place
+  float* red = s;           // (2, 32) the sweeps' gathered partials
+  float* m = s + 64;        // (V, ld) factor of the current stage
+  float* y = m + V * ld;    // (V,) right-hand side, solved in place
+  float* xv = y + V;        // (V,) x_prev, then this stage's solution
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t chain = blockIdx.x;
+  const size_t vv = static_cast<size_t>(V) * V;
 
   for (int i = threadIdx.x; i < V; i += kThreads) xv[i] = 0.f;
 
   for (int step = 0; step < K; ++step) {
     const int k = reverse ? K - 1 - step : step;
-    const size_t mo = (chain * K + k) * static_cast<size_t>(V) * V;
+    const size_t mo = (chain * K + k) * vv;
     const size_t vo = (chain * K + k) * static_cast<size_t>(V);
     __syncthreads();  // the previous stage is done with m, xv and y
-    for (int i = warp; i < V; i += kWarps)
-      for (int j = lane; j < V; j += 32) m[i * ld + j] = lu[mo + static_cast<size_t>(i) * V + j];
+    if (vec) {
+      // rows of V/4 float4s: 16-byte reads, scalar stores to the odd stride
+      const float4* src = reinterpret_cast<const float4*>(lu + mo);
+      const int V4 = V >> 2;
+#pragma unroll 4
+      for (int e = threadIdx.x; e < V * V4; e += kThreads) {
+        const int i = e / V4, j = (e - i * V4) << 2;
+        const float4 w = src[e];
+        float* dst = m + i * ld + j;
+        dst[0] = w.x;
+        dst[1] = w.y;
+        dst[2] = w.z;
+        dst[3] = w.w;
+      }
+    } else {
+      for (int i = warp; i < V; i += kWarps)
+        for (int j = lane; j < V; j += 32)
+          cp_async4(m + i * ld + j, lu + mo + static_cast<size_t>(i) * V + j);
+    }
     for (int i = threadIdx.x; i < V; i += kThreads) y[i] = base[vo + i] + mult[vo + i] * xv[i];
+    cp_async_wait_all();
     __syncthreads();
 
     if (warp == 0) {
-      repro::two_sweep_warp(m, ld, y, V, trans, lane);
+      if (trans) {
+        forward_sweep<NC, 1>(m, ld, y, V, lane, red);
+        backward_sweep<NC, 1>(m, ld, y, V, lane, red);
+      } else {
+        forward_sweep<NC, 0>(m, ld, y, V, lane, red);
+        backward_sweep<NC, 0>(m, ld, y, V, lane, red);
+      }
       for (int i = lane; i < V; i += 32) {
         float v = y[i];
         if (clamp) v = (v != v) ? v : fmaxf(v, 0.f);
         xv[i] = v;
         x_out[vo + i] = v;
       }
+    } else if (step + 1 < K) {
+      const int kn = reverse ? k - 1 : k + 1;
+      const float* next = lu + (chain * K + kn) * vv;
+      for (size_t o = static_cast<size_t>(threadIdx.x - 32) * 32; o < vv;
+           o += static_cast<size_t>(kThreads - 32) * 32)
+        prefetch_l2(next + o);
     }
   }
+}
+
+template <int NC>
+int launch(const float* lu, const float* base, const float* mult, float* x, int B, int K,
+           int V, int trans, int reverse, int clamp, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(chain_kernel_pipelined<NC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int vec = (V % 4 == 0) && (reinterpret_cast<std::uintptr_t>(lu) % 16 == 0);
+  chain_kernel_pipelined<NC><<<B, kThreads, smem, stream>>>(lu, base, mult, x, K, V, V | 1,
+                                                           trans, reverse, clamp, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -79,7 +331,7 @@ extern "C" {
 // Shared memory one block needs at node count V.
 int repro_chain_solve_smem_bytes(int V) {
   const int ld = V | 1;
-  return static_cast<int>(sizeof(float)) * (V * ld + 2 * V);
+  return static_cast<int>(sizeof(float)) * (64 + V * ld + 2 * V);
 }
 
 // lu: (B, K, V, V), base/mult/x: (B, K, V), float32, contiguous.
@@ -87,14 +339,18 @@ int repro_chain_solve(const float* lu, const float* base, const float* mult, flo
                       int B, int K, int V, int trans, int reverse, int clamp,
                       cudaStream_t stream) {
   if (B == 0 || K == 0 || V == 0) return 0;
-  const int ld = V | 1;
+  if (V > 32 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = repro_chain_solve_smem_bytes(V);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch ((V + 31) / 32) {
+    case 1: return launch<1>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 2: return launch<2>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 3: return launch<3>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 4: return launch<4>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 5: return launch<5>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 6: return launch<6>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    case 7: return launch<7>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
+    default: return launch<8>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
   }
-  chain_kernel<<<B, kThreads, smem, stream>>>(lu, base, mult, x, K, V, ld, trans, reverse, clamp);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -66,9 +66,8 @@ class BatchedLU(NamedTuple):
 def batched_factor(mats: torch.Tensor) -> BatchedLU:
     """Factor a batch of dense systems: mats (..., V, V) -> BatchedLU."""
     lead, V = mats.shape[:-2], mats.shape[-1]
-    lu = _bs.lu_factor(mats.reshape(-1, V, V).contiguous())
-    return BatchedLU(lu=lu.reshape(lead + (V, V)),
-                     ok=_bs.factor_ok(lu).reshape(lead))
+    lu, ok = _bs.lu_factor(mats.reshape(-1, V, V).contiguous(), with_ok=True)
+    return BatchedLU(lu=lu.reshape(lead + (V, V)), ok=ok.reshape(lead))
 
 
 def batched_solve_factored(fact: BatchedLU, rhs: torch.Tensor, *,

@@ -1,5 +1,7 @@
 """Seeded numpy inputs shared by the port's kernel tests (CPU and card)."""
 
+import functools
+
 import numpy as np
 
 
@@ -518,3 +520,147 @@ def chained_parity(results, refs, colds, *, max_iters):
         reports.append(rep)
         prev_moved = moved
     return reports
+
+
+# ---------------------------------------------------------------------------
+# Card digests of the dense route's kernels
+# (tests/data/torch_card_dense_digests.json, made on the card by
+# tests/data/make_torch_card_digests.py)
+# ---------------------------------------------------------------------------
+
+DIGEST_LU_V = (1, 11, 22, 31, 32, 69, 100, 127, 128, 129, 130, 240)
+DIGEST_CHAIN_V = (11, 22, 100, 130, 239)
+CHAIN_VARIANTS = ((1, False, False), (0, True, True), (1, True, False), (0, False, True))
+
+
+def dense_digest_cases():
+    """The digest cases, as JSON-ready dicts.
+
+    ``lu_factor``: seven members at each V in ``DIGEST_LU_V``, member 3
+    singular (row and column min(5, V-1) zero) and member 5 scaled by
+    1e-32 (finite, every pivot below ``PIVOT_TINY``); then 1080 members at
+    V=100 (more than one wave of thread blocks) with members 17 and 500
+    singular.  ``chain_solve``: nine chains of three stages at each V in
+    ``DIGEST_CHAIN_V``, in the four trans/reverse/clamp variants, chain 4
+    loopy in its middle stage; then 720 chains at V=100 (more than one
+    wave) with chains 3 and 400 loopy, in the traffic and marginal
+    variants.  The chain's largest V is 239: at V=240 its factor, right-hand
+    side and iterate need 233,280 B of shared memory, above the card's
+    232,448 B per block, and the wrapper raises.
+    """
+    cases = []
+    for V in DIGEST_LU_V:
+        cases.append({"kernel": "lu_factor", "V": V, "B": 7, "seed": 1500 + V,
+                      "singular": [3], "tiny": [5]})
+    cases.append({"kernel": "lu_factor", "V": 100, "B": 1080, "seed": 1599,
+                  "singular": [17, 500], "tiny": []})
+    for V in DIGEST_CHAIN_V:
+        for n, (trans, reverse, clamp) in enumerate(CHAIN_VARIANTS):
+            cases.append({"kernel": "chain_solve", "V": V, "B": 9, "K": 3,
+                          "seed": 1700 + 10 * V + n, "loopy": [4], "trans": trans,
+                          "reverse": reverse, "clamp": clamp})
+    for trans, reverse, clamp in CHAIN_VARIANTS[:2]:
+        cases.append({"kernel": "chain_solve", "V": 100, "B": 720, "K": 3,
+                      "seed": 1799, "loopy": [3, 400], "trans": trans,
+                      "reverse": reverse, "clamp": clamp})
+    return cases
+
+
+def case_id(case) -> str:
+    """A short name of a digest case, for test ids and report lines."""
+    if case["kernel"] == "lu_factor":
+        return f"lu_factor-V{case['V']}-B{case['B']}"
+    return (f"chain_solve-V{case['V']}-B{case['B']}-t{case['trans']}"
+            f"{'r' if case['reverse'] else ''}{'c' if case['clamp'] else ''}")
+
+
+def np_lu_factor(mats):
+    """The unpivoted elimination in numpy float32 (a chain case's factors:
+    fixed by numpy alone, whatever kernel is under test)."""
+    a = np.array(mats, dtype=np.float32)
+    V = a.shape[-1]
+    with np.errstate(all="ignore"):
+        for k in range(V - 1):
+            l = a[:, k + 1:, k] / a[:, k, k, None]
+            a[:, k + 1:, k] = l
+            a[:, k + 1:, k + 1:] -= l[:, :, None] * a[:, k, None, k + 1:]
+    return a
+
+
+def digest_inputs(case):
+    """{name: float32 array} of a digest case, from its seed (cached: the
+    two large chain cases share their inputs; do not write to them)."""
+    keys = ("kernel", "V", "B", "K", "seed", "singular", "tiny", "loopy")
+    return _digest_inputs(tuple((k, tuple(v) if isinstance(v, list) else v)
+                                for k, v in case.items() if k in keys))
+
+
+@functools.lru_cache(maxsize=2)
+def _digest_inputs(key):
+    case = dict(key)
+    rng = np.random.default_rng(case["seed"])
+    V = case["V"]
+    if case["kernel"] == "lu_factor":
+        mats = stage_mats(rng, case["B"], V)
+        z = min(5, V - 1)
+        for b in case["singular"]:
+            mats[b, :, z] = 0.0
+            mats[b, z, :] = 0.0
+        for b in case["tiny"]:
+            mats[b] *= np.float32(1e-32)
+        return {"mats": mats}
+    B, K = case["B"], case["K"]
+    mats = stage_mats(rng, B * K, V, loopy=tuple(b * K + 1 for b in case["loopy"]))
+    lu = np_lu_factor(mats).reshape(B, K, V, V)
+    base = rng.uniform(-0.5, 2.0, (B, K, V)).astype(np.float32)
+    mult = rng.uniform(0.0, 1.0, (B, K, V)).astype(np.float32)
+    return {"lu": lu, "base": base, "mult": mult}
+
+
+def sha256(a) -> str:
+    """sha256 of an array's bytes, C order."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def check_dense_digest(case, ref, device="cuda"):
+    """Run one digest case through the port's kernels on ``device`` and
+    hold it to ``ref`` (the case's entry of the digest file).
+
+    Returns a report: ``inputs_equal`` (the numpy inputs' digests),
+    ``outputs_equal`` (the kernel's output bytes against the card's
+    digests: the factors and flags, or the chain's iterates), ``ok_equal``
+    (lu_factor: the kernel's flags against ``factor_ok`` of its factors),
+    ``max_abs_diff`` and ``max_rel_err`` against the plain version on the
+    same device (finite members; relative to max(|plain|, 1)), and the
+    digests that differ.
+    """
+    import torch
+    from repro_torch.kernels import batched_solve as bs
+
+    inputs = digest_inputs(case)
+    rep = {"case": case_id(case), "inputs_equal": all(
+        sha256(v) == ref["inputs"][k] for k, v in inputs.items())}
+    t = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    if case["kernel"] == "lu_factor":
+        got, ok = bs.lu_factor(t["mats"], with_ok=True)
+        want = bs.lu_factor_plain(t["mats"])
+        outputs = {"lu": got.cpu().numpy(), "ok": ok.cpu().numpy().astype(np.uint8)}
+        rep["ok_equal"] = bool(torch.equal(ok, bs.factor_ok(got)))
+        fin = torch.isfinite(want).all(dim=-1).all(dim=-1)
+    else:
+        kw = {k: case[k] for k in ("trans", "reverse", "clamp")}
+        got = bs.chain_solve(t["lu"], t["base"], t["mult"], **kw)
+        want = bs.chain_solve_plain(t["lu"], t["base"], t["mult"], **kw)
+        outputs = {"x": got.cpu().numpy()}
+        fin = torch.isfinite(want).all(dim=-1).all(dim=-1)
+    rep["finite_equal"] = bool(torch.equal(
+        torch.isfinite(got).all(dim=-1).all(dim=-1), fin))
+    d = (got[fin].double() - want[fin].double()).abs()
+    rep["max_abs_diff"] = float(d.max()) if d.numel() else 0.0
+    rep["max_rel_err"] = (float((d / want[fin].double().abs().clamp_min(1.0)).max())
+                          if d.numel() else 0.0)
+    rep["differ"] = sorted(k for k, v in outputs.items() if sha256(v) != ref["outputs"][k])
+    rep["outputs_equal"] = not rep["differ"]
+    return rep

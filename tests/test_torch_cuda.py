@@ -23,6 +23,7 @@ the one-by-one solves on the card: final costs within 1e-4 (the
 reference's own bound, ``tests/test_blocked_sets.py``).
 """
 
+import json
 import os
 
 import numpy as np
@@ -37,10 +38,13 @@ from repro_torch.kernels import chain_propagate as cp  # noqa: E402
 from repro_torch.core import engine, marginals, traffic  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_solve as ss  # noqa: E402
-from _torch_cases import random_bits, stage_mats, with_loops  # noqa: E402
+from _torch_cases import (case_id, check_dense_digest, dense_digest_cases,  # noqa: E402
+                          random_bits, stage_mats, with_loops)
 
 METRO_GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                             "torch_ref_metro_sw1000.npz")
+DENSE_DIGESTS = os.path.join(os.path.dirname(__file__), "data",
+                             "torch_card_dense_digests.json")
 
 pytestmark = pytest.mark.gpu
 
@@ -95,6 +99,47 @@ def test_chain_solve_kernel_matches_plain(cuda, V, trans, reverse, clamp):
     assert _rel(got[good], want[good]) <= 1e-5
     assert not torch.isfinite(got[loopy]).all()
     assert torch.equal(torch.isnan(got[loopy]), torch.isnan(want[loopy]))
+
+
+@pytest.mark.parametrize("case", dense_digest_cases(), ids=case_id)
+def test_dense_kernels_bit_equal_to_card_digests(cuda, case):
+    """``lu_factor`` (factors and ``ok``) and ``chain_solve`` write the
+    bytes the card's digest file records (the kernels they were redesigned
+    from), within 1e-5 of their plain versions, the kernel's ``ok`` equal to
+    ``factor_ok`` of its factors."""
+    with open(DENSE_DIGESTS) as fh:
+        ref = {case_id(c): c for c in json.load(fh)["cases"]}[case_id(case)]
+    rep = check_dense_digest(case, ref, cuda)
+    print(json.dumps(rep))
+    assert rep["inputs_equal"], "the numpy inputs drifted"
+    assert rep["outputs_equal"], (f"{rep['case']}: {rep['differ']} differ, max abs diff "
+                                  f"against the plain version {rep['max_abs_diff']}")
+    assert rep.get("ok_equal", True) and rep["finite_equal"]
+    assert rep["max_rel_err"] <= 1e-5
+
+
+def test_launch_plans_match_the_kernels(cuda):
+    """The wrappers' launch plans agree with the CUDA sources: the shared
+    memory each variant takes, and the register variant refused above
+    V=128."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    def c_int(name, symbol, *args):
+        return _build.function(name, symbol, [ctypes.c_int] * len(args))(*args)
+
+    for V in (1, 16, 17, 100, 128, 129, 200, 240, 241):
+        plan = bs.lu_factor_plan(V)
+        variant = 0 if plan["variant"] == "registers" else 1
+        assert c_int("batched_lu", "repro_lu_factor_smem_bytes", V, variant) == plan["smem_bytes"]
+    for V in (1, 32, 33, 100, 239):
+        assert (c_int("chain_solve", "repro_chain_solve_smem_bytes", V)
+                == bs.chain_solve_plan(V)["smem_bytes"])
+    fn = _build.function("batched_lu", "repro_lu_factor",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    assert fn(None, None, None, 0, 129, 0, None) != 0
+    assert fn(None, None, None, 0, 128, 0, None) == 0
 
 
 def test_chain_clamp_keeps_nan_on_card(cuda):
