@@ -6,14 +6,15 @@
 Runs from the root of a checkout and needs one card; it builds the port's
 CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
 ``build/repro_torch_kernels/``.  ``--prev DIR`` names a directory holding
-earlier ``batched_lu.cu``, ``chain_solve.cu`` and ``two_sweep.cuh`` (for
-example PR 14's, unpacked with ``git show``): they are built beside the
-others and timed against the redesigned kernels in the ``kernel`` phase.
-One JSON line per phase:
+earlier versions of the redesigned kernels: ``bsr_chain.cu`` (as at
+commit f4ca93a) and/or ``batched_lu.cu``, ``chain_solve.cu`` and
+``two_sweep.cuh`` (as at commit 2e984dd), unpacked with ``git show``: those DIR holds
+are built beside the others and timed against the redesigned kernels in
+the ``kernel`` phase.  One JSON line per phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
   2. build   — the nine kernels, one ``nvcc`` each, all started together
-     (with ``--prev``, the two earlier sources too); ``ptxas`` registers and
+     (with ``--prev``, the earlier sources too); ``ptxas`` registers and
      spills of each kernel.
   3. kernels — each kernel against its plain PyTorch version on the card, at
      the shapes Algorithm 1 gives it on sw-queue (V=100, 30 apps, 3 stages),
@@ -37,8 +38,12 @@ One JSON line per phase:
      every case of ``tests/data/torch_card_dense_digests.json`` (the card
      digests of PR 14's kernels; the register and shared-memory variants of
      ``lu_factor``, V from 1 to 240): output bytes equal to the digests,
-     within 1e-5 of the plain versions; a mismatch names the outputs and the
-     largest difference against the plain version.
+     within 1e-5 of the plain versions; and ``bsr_chain`` on every case of
+     ``tests/data/torch_card_bsr_digests.json`` (the earlier kernel: the
+     metro-sw ladder shape, metro-geant, the loopy sw-queue ladder, every
+     trans/reverse/clamp variant): iterates and sweep counts bit-equal to
+     the digests and to the plain version; a mismatch names the outputs and
+     the largest difference against the plain version.
   4. solve   — the main path, ``gp.solve(table_ii_instance("sw-queue"),
      alpha=0.1, max_iters=400)`` on the card, with every kernel's launch
      count set to 0 just before and read just after; then held against the
@@ -60,8 +65,13 @@ One JSON line per phase:
      routing loops put into three members; ``tagged_nbr`` on metro-sw
      V=1000 and on congested sw-queue inputs.  Values within 1e-5 with the
      same +inf entries and the same sweep counts (kernel and plain version
-     share one summation order); tagged bit-exact.  ``gather_ms`` is the
-     time of the ``block_values`` gather that feeds ``bsr_chain``.
+     share one summation order); tagged bit-exact.  The ``bsr_chain``
+     wrapper launches its kernel alone (it reads ``phi_e``; no gather):
+     ``gather_ms_before`` is the ``block_values`` gather the earlier kernel
+     needed.  With ``--prev``, the earlier kernel on the same inputs: bit-equal
+     iterates and sweep counts, timed in turns kernel against kernel
+     (``abba_ms``) and gather plus kernel against the new kernel
+     (``abba_with_gather_ms``).
   8. metro   — the second main path, ``gp.solve(metro_instance("sw",
      1000))``, on the sparse route, with every launch count set to 0 just
      before the default solve and read just after: ``bsr_chain`` and
@@ -74,6 +84,19 @@ One JSON line per phase:
   9. metro_profile — ``torch.profiler`` over one 32-step chunk of the
      metro solve: device time per step, top device operations, idle share
      against the metro phase's unprofiled ms per step.
+  9b. kernel (dense, large V) — ``lu_factor`` (32-column panels),
+     ``chain_solve`` and ``lu_solve`` (32-row strips) and ``tagged`` (words
+     from global memory at V=1000) against their plain versions at V = 300,
+     600 and 1000, on the ladder candidates and stage systems of
+     ``without_sparse(metro_instance("sw", V))`` (within 1e-5, ``ok`` flags
+     equal; ``torch.linalg.lu_factor`` / ``lu_solve`` beside them) and on
+     the seeded cases of ``_torch_cases.dense_scale_cases``.
+  9c. dense_scale — ``gp.solve(without_sparse(metro_instance("sw", V)))``
+     at V = 300 and 600 on the dense route, its launches counted, against
+     the port's sparse route on the same instance (default and latch-off
+     solves, one step's rung costs and every ladder candidate's flows,
+     within 1e-5) and at V=300 against the reference's ``solver="dense"``
+     solve (``tests/data/torch_ref_dense_sw300.npz``).
 
   10. model_kernels — the edge-serving path's two kernels against their plain
      versions on the card, within 2e-5 of the plain version's largest
@@ -140,6 +163,17 @@ One JSON line per phase:
      max_iters=250``: the same lines and checks.  Where the reference's own
      GP stops above SPOC (connected-er, geant: its stall latch), the claim
      is held within 1e-4.
+  16b. sweep fig7 / ensemble / mixed — ``fig7-packetsize`` (GP, SPOC,
+     LCOF), ``seed-ensemble`` (32 Abilene seeds: GP and ``accel=True``) and
+     ``mixed-topology`` (GP, SPOC, LCOF) batched (the CPU tests hold their
+     one-by-one runs), every member under ``sweep_parity`` with the run from
+     a jittered start as its own witness; the members of
+     ``_torch_cases.SWEEP_KNOWN_FAULTS["cuda"]`` must fail it, and only as
+     recorded (``known_fault_holds``: a known fault that passes, fails
+     otherwise, or is not run, fails the phase).  In every sweep phase the
+     port's runs from a jittered start (and, for an accelerated member's
+     one-by-one line, its one-by-one run from that start) are made only
+     for the lines that fail without them.
   17. sweep_profile — ``torch.profiler`` over 32 batched iterations of the
      Fig. 6 family and of Fig. 5's sw-queue group: device time per step by
      kernel, launches per step, idle share.
@@ -149,8 +183,8 @@ main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
 ``propagate_step``, which lie on no solver path; ``prev_ms`` and
-``redesigned_in`` for the two kernels redesigned in PR 15, null for the
-others and without ``--prev``), the card's ``nvidia-smi`` line, and the
+``prev_commit`` for the three redesigned kernels, the commit their earlier
+versions come from; ``prev_ms`` null for the others and without ``--prev``), the card's ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository, it exits non-zero at once.
@@ -158,9 +192,11 @@ without the rest of the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -174,6 +210,8 @@ GOLDEN_METRO = os.path.join(TESTS, "data", "torch_ref_metro_sw1000.npz")
 GOLDEN_EDGE = os.path.join(TESTS, "data", "torch_ref_edge.json")
 GOLDEN_SWEEP = os.path.join(TESTS, "data", "torch_ref_sweep.npz")
 DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_digests.json")
+BSR_DIGESTS = os.path.join(TESTS, "data", "torch_card_bsr_digests.json")
+GOLDEN_DENSE = os.path.join(TESTS, "data", "torch_ref_dense_sw300.npz")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -195,10 +233,10 @@ def require(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, reps: int = REPS) -> float:
     """Device time per ``fn()`` call: CUDA events around a run of
     back-to-back calls (as many as fill about 2 ms, at most 50), median of
-    ``REPS`` runs after a warm-up."""
+    ``reps`` runs after a warm-up (fewer for the slow plain versions)."""
     import torch
 
     fn()
@@ -208,7 +246,7 @@ def time_ms(fn) -> float:
     torch.cuda.synchronize()
     n = max(1, min(50, int(2e-3 / max(time.perf_counter() - t0, 1e-6))))
     out = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -286,16 +324,18 @@ def phase_device():
     return smi
 
 
-# The sources of the two kernels redesigned in PR 15, built from their
-# earlier versions (``--prev DIR``) to be timed beside the new ones.
-PREV_SOURCES = ("batched_lu", "chain_solve")
+# The sources of the redesigned kernels (``batched_lu`` and ``chain_solve``,
+# earlier versions as at commit 2e984dd; ``bsr_chain``, as at commit
+# f4ca93a), built from their earlier versions (``--prev DIR``, whichever of
+# them DIR holds) to be timed beside the new ones.
+PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain")
 PREV_BUILD = os.path.join(HERE, "build", "prev_kernels")
 
 
 def phase_build(prev_dir=None):
     """Build the nine kernels (one ``nvcc`` each, all at once); with
-    ``prev_dir``, also the earlier ``batched_lu.cu`` and ``chain_solve.cu``
-    found there, alongside."""
+    ``prev_dir``, also the earlier ``batched_lu.cu``, ``chain_solve.cu``
+    and ``bsr_chain.cu`` found there, alongside."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -303,6 +343,8 @@ def phase_build(prev_dir=None):
     if prev_dir:
         os.makedirs(PREV_BUILD, exist_ok=True)
         for src in PREV_SOURCES:
+            if not os.path.exists(os.path.join(prev_dir, f"{src}.cu")):
+                continue
             out = os.path.join(PREV_BUILD, f"{src}.so")
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out,
                    os.path.join(prev_dir, f"{src}.cu")]
@@ -319,21 +361,32 @@ def phase_build(prev_dir=None):
           "per_source_seconds": {n: r["seconds"] for n, r in report.items()},
           "ptxas": ptxas, "dir": str(_build.BUILD_DIR),
           "prev": sorted(prev) if prev else None})
-    return PrevKernels() if prev else None
+    return PrevKernels(sorted(prev)) if prev else None
 
 
 class PrevKernels:
-    """The earlier ``lu_factor`` and ``chain_solve`` kernels (their own C
-    entry points, loaded with ctypes from ``build/prev_kernels``)."""
+    """The earlier kernels built from ``--prev DIR`` (their own C entry
+    points, loaded with ctypes from ``build/prev_kernels``): the earlier
+    ``lu_factor`` and ``chain_solve`` (commit 2e984dd) and ``bsr_chain``
+    (commit f4ca93a, which reads the gathered blocks of ``block_values``).  ``has`` names those built."""
 
-    def __init__(self):
+    def __init__(self, has):
         import ctypes
 
         vp, i = ctypes.c_void_p, ctypes.c_int
-        self._lu = ctypes.CDLL(os.path.join(PREV_BUILD, "batched_lu.so")).repro_lu_factor
-        self._lu.argtypes, self._lu.restype = [vp, vp, i, i, vp], i
-        self._chain = ctypes.CDLL(os.path.join(PREV_BUILD, "chain_solve.so")).repro_chain_solve
-        self._chain.argtypes, self._chain.restype = [vp] * 4 + [i] * 6 + [vp], i
+        self.has = set(has)
+
+        def fn(src, symbol, argtypes):
+            f = getattr(ctypes.CDLL(os.path.join(PREV_BUILD, f"{src}.so")), symbol)
+            f.argtypes, f.restype = argtypes, i
+            return f
+
+        if "batched_lu" in self.has:
+            self._lu = fn("batched_lu", "repro_lu_factor", [vp, vp, i, i, vp])
+        if "chain_solve" in self.has:
+            self._chain = fn("chain_solve", "repro_chain_solve", [vp] * 4 + [i] * 6 + [vp])
+        if "bsr_chain" in self.has:
+            self._bsr = fn("bsr_chain", "repro_bsr_chain", [vp] * 6 + [i] * 6 + [vp])
 
     @staticmethod
     def _stream():
@@ -361,16 +414,35 @@ class PrevKernels:
         return out
 
 
-def _versus_prev(prev, old_fn, new_fn, new_out, symbol, what) -> dict:
-    """The redesigned kernel against its earlier version on the same
-    inputs: outputs bit-equal, and device ms per launch timed in turns
-    (old, new, new, old); ``prev_ms`` the mean of the two old times."""
+    def bsr_chain(self, bvals, blk_nbr, base, mult, *, reverse=False, clamp=False):
+        """The earlier kernel on gathered blocks: (x, sweeps)."""
+        import torch
+
+        out = torch.empty_like(base)
+        sweeps = torch.empty(base.shape[:2], dtype=torch.int32, device=base.device)
+        B, K, V = base.shape
+        NB, BD = blk_nbr.shape
+        require(self._bsr(bvals.data_ptr(), blk_nbr.data_ptr(), base.data_ptr(),
+                          mult.data_ptr(), out.data_ptr(), sweeps.data_ptr(), B, K, NB, BD, V,
+                          int(reverse) | (int(clamp) << 1), self._stream()) == 0,
+                "earlier bsr_chain launch")
+        return out, sweeps
+
+
+def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit) -> dict:
+    """The redesigned kernel against its earlier version (``old_fn``, None
+    without ``--prev``) on the same inputs: outputs bit-equal, and device ms
+    per launch timed in turns (old, new, new, old); ``prev_ms`` the mean of
+    the two old times."""
     import torch
 
-    if prev is None:
-        return {"prev_ms": None, "redesigned_in": "PR 15"}
+    if not old_fn:
+        return {"prev_ms": None, "prev_commit": prev_commit}
     old_out = old_fn()
-    require(torch.equal(old_out.view(torch.int32), new_out.view(torch.int32)),
+    old_out, new_out = ((old_out, new_out) if isinstance(old_out, tuple)
+                        else ((old_out,), (new_out,)))
+    require(all(torch.equal(o.view(torch.int32), n.view(torch.int32))
+                for o, n in zip(old_out, new_out)),
             f"{what}: bit-equal to the earlier kernel")
 
     def dev_ms(fn):
@@ -380,7 +452,7 @@ def _versus_prev(prev, old_fn, new_fn, new_out, symbol, what) -> dict:
     abba = [dev_ms(old_fn), dev_ms(new_fn), dev_ms(new_fn), dev_ms(old_fn)]
     prev_ms = (abba[0] + abba[3]) / 2
     return {"prev_ms": prev_ms, "abba_ms": abba, "speedup": prev_ms / ((abba[1] + abba[2]) / 2),
-            "bit_equal_prev": True, "redesigned_in": "PR 15"}
+            "bit_equal_prev": True, "prev_commit": prev_commit}
 
 
 def _tagged_rounds(route_bits, imp_bits):
@@ -442,9 +514,10 @@ def phase_kernels(prev=None):
                "library_ms": time_ms(lambda: torch.linalg.lu_factor(mats)),
                "bound_ms": b_ms, "bound_by": b_by,
                "variant": bs.lu_factor_plan(V)["variant"],
-               **_versus_prev(prev, lambda: prev.lu_factor(mats),
+               **_versus_prev(prev and "batched_lu" in prev.has
+                              and (lambda: prev.lu_factor(mats)),
                               lambda: bs.lu_factor(mats), got, "lu_kernel",
-                              f"lu_factor {label}")}
+                              f"lu_factor {label}", "2e984dd")}
         emit({"phase": "kernel", "name": "lu_factor", "case": label, **row})
         lu_rows.append(row)
     results["lu_factor"] = lu_rows
@@ -481,9 +554,10 @@ def phase_kernels(prev=None):
                **timed(lambda: bs.chain_solve(lu, b2, m2, **kw), "chain_kernel"),
                "plain_ms": time_ms(lambda: bs.chain_solve_plain(lu, b2, m2, **kw)),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               **_versus_prev(prev, lambda: prev.chain_solve(lu, b2, m2, **kw),
+               **_versus_prev(prev and "chain_solve" in prev.has
+                              and (lambda: prev.chain_solve(lu, b2, m2, **kw)),
                               lambda: bs.chain_solve(lu, b2, m2, **kw), got,
-                              "chain_kernel", f"chain_solve {label}")}
+                              "chain_kernel", f"chain_solve {label}", "2e984dd")}
         emit({"phase": "kernel", "name": "chain_solve", "case": label, **row})
         chain_rows.append(row)
     results["chain_solve"] = chain_rows
@@ -527,27 +601,56 @@ def phase_kernels(prev=None):
     return results
 
 
-def phase_digests():
-    """The dense route's two kernels held to the card digests of the
-    kernels they were redesigned from (``tests/data/
-    torch_card_dense_digests.json``): every case's output bytes equal, the
-    kernel's ``ok`` equal to ``factor_ok``, within 1e-5 of the plain
-    version.  On a mismatch the line gives the largest difference against
-    the plain version."""
-    from _torch_cases import case_id, check_dense_digest, dense_digest_cases
+def digest_case_inputs(pool):
+    """The seeded numpy inputs of every dense digest and dense-scale case
+    (``_torch_cases.digest_inputs``: about 25 s of host work, 13 s of it
+    the 720-chain case), submitted to ``pool``'s processes so that they are
+    made while ``nvcc`` builds the kernels: {``digest_key``: future}."""
+    from _torch_cases import dense_digest_cases, dense_scale_cases, digest_inputs, digest_key
+
+    out = {}
+    for c in dense_digest_cases() + dense_scale_cases():
+        if digest_key(c) not in out:
+            out[digest_key(c)] = pool.submit(digest_inputs, c)
+    return out
+
+
+def phase_digests(inputs):
+    """The redesigned kernels held to the card digests of the kernels they
+    were redesigned from: the dense route's two (``tests/data/
+    torch_card_dense_digests.json``, the kernels of commit 2e984dd): every case's output
+    bytes equal, the kernel's ``ok`` equal to ``factor_ok``, within 1e-5 of
+    the plain version; and ``bsr_chain`` (``tests/data/
+    torch_card_bsr_digests.json``, the kernel of commit f4ca93a): the iterates and the
+    sweep counts bit-equal to the digests and to the plain version.  On a
+    mismatch the line gives the largest difference against the plain
+    version."""
+    from _torch_cases import (bsr_digest_cases, bsr_topology, case_id, check_bsr_digest,
+                              check_dense_digest, dense_digest_cases, digest_key)
     from repro_torch.kernels import batched_solve as bs
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_solve as ss
 
     with open(DIGESTS) as fh:
         refs = {case_id(c): c for c in json.load(fh)["cases"]}
     failed = []
     for case in dense_digest_cases():
-        rep = check_dense_digest(case, refs[case_id(case)])
+        rep = check_dense_digest(case, refs[case_id(case)],
+                                 inputs=inputs[digest_key(case)].result())
         if case["kernel"] == "lu_factor":
             rep["variant"] = bs.lu_factor_plan(case["V"])["variant"]
         emit({"phase": "digests", **rep})
         if not (rep["inputs_equal"] and rep["outputs_equal"] and rep["finite_equal"]
                 and rep.get("ok_equal", True) and rep["max_rel_err"] <= 1e-5):
+            failed.append(rep["case"])
+    with open(BSR_DIGESTS) as fh:
+        refs = {c["label"]: c for c in json.load(fh)["cases"]}
+    for case in bsr_digest_cases():
+        rep = check_bsr_digest(case, refs[case["label"]])
+        plan = ss.bsr_chain_plan(*bsr_topology(case["topo"], case["V"])[2].shape)
+        emit({"phase": "digests", "kernel": "bsr_chain", **rep,
+              "variant": plan["variant"], "cluster": plan["cluster"]})
+        if not (rep["inputs_equal"] and rep["outputs_equal"] and rep["plain_equal"]):
             failed.append(rep["case"])
     require(not failed, f"digests: {failed}")
     ops.reset_launch_counts()
@@ -660,23 +763,30 @@ def phase_parity(ref):
     require(err <= 1e-5, f"cost history within 1e-5 of the reference: {err}")
 
 
-def _bsr_row(label, inst, phi_e, base, mult, trans, reverse=False, clamp=False):
-    """One ``bsr_chain`` case: the kernel against its plain version on the
-    inputs of one chain call of a GP step, with the gather beside it."""
+def _bsr_row(label, inst, phi_e, base, mult, trans, reverse=False, clamp=False, prev=None):
+    """One ``bsr_chain`` case: the kernel against its plain version (and
+    with ``prev`` against the earlier kernel, bit for bit and timed in turns,
+    kernel alone and with the ``block_values`` gather it needed) on the
+    inputs of one chain call of a GP step."""
     import torch
     from repro_torch.kernels import sparse_solve as ss
 
     K, V = base.shape[-2:]
-    pe = phi_e.reshape(-1, K, V, V)
+    pe = phi_e.reshape(-1, K, V, V).contiguous()
     M = pe.transpose(-1, -2) if trans else pe
     blk_nbr, blk_mask = inst.blk_nbr, inst.blk_mask
-    bvals = ss.block_values(M, blk_nbr, blk_mask)
+    bvals = ss.block_values(M, blk_nbr, blk_mask).contiguous()
     b2 = base.reshape(-1, K, V).contiguous()
     m2 = mult.reshape(-1, K, V).contiguous()
     B = b2.shape[0]
     NB, BD = blk_nbr.shape
     kw = dict(reverse=reverse, clamp=clamp)
-    got, sweeps = ss.chain_solve_bsr(bvals, blk_nbr, b2, m2, with_sweeps=True, **kw)
+
+    def new():
+        return ss.chain_solve_bsr(pe, blk_nbr, blk_mask, b2, m2, trans=trans,
+                                  with_sweeps=True, **kw)
+
+    got, sweeps = new()
     want, sweeps_plain = ss.chain_solve_bsr_plain(bvals, blk_nbr, b2, m2,
                                                   with_sweeps=True, **kw)
     require(torch.equal(sweeps, sweeps_plain), f"bsr_chain {label}: sweep counts")
@@ -685,25 +795,59 @@ def _bsr_row(label, inst, phi_e, base, mult, trans, reverse=False, clamp=False):
     fin = torch.isfinite(want)
     abs_e, rel_e = rel_err(got, want, fin) if bool(fin.any()) else (0.0, 0.0)
     require(rel_e <= 1e-5, f"bsr_chain {label}: rel err {rel_e}")
+    # the card path gathers nothing: the trace shows no kernel but its own
+    launched = sorted(device_kernels(new, 3))
+    require(all("bsr_chain" in k for k in launched),
+            f"bsr_chain {label}: the wrapper launches the kernel alone: {launched}")
     total_sweeps = int(sweeps.sum())
     # only the unmasked blocks carry work; the masked slots pad BD with zeros
     nnz = int(blk_mask.sum())
     nbytes = (B * K * nnz * 32 * 32 + 3 * b2.numel() + sweeps.numel()) * 4 + nnz * 8
     b_ms, b_by = bound(nbytes, total_sweeps * nnz * 32 * 32 * 2)
+    plan = ss.bsr_chain_plan(NB, BD)
+    resident = None
+    if plan["cluster"] == 16:
+        import ctypes
+
+        from repro_torch.kernels import _build
+
+        n = ctypes.c_int(-1)
+        fn = _build.function("bsr_chain", "repro_bsr_chain_max_clusters",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        require(fn(NB, BD, plan["rows"], int(plan["variant"] == "stream"), ctypes.byref(n)) == 0,
+                "bsr_chain: cluster occupancy query")
+        resident = n.value
     row = {"shape": [B, K, NB, BD, 32, 32], "V": V, "nonzero_blocks": nnz,
-           "trans": trans,
-           "reverse": reverse, "clamp": clamp,
+           "trans": trans, "reverse": reverse, "clamp": clamp,
+           "variant": plan["variant"], "cluster": plan["cluster"], "rows_per_cta": plan["rows"],
+           "clusters_resident": resident,
            "sweeps_total": total_sweeps, "sweeps_max": int(sweeps.max()),
            "members_at_cap": int((sweeps == V + 2).any(dim=-1).sum()),
            "members_not_finite": int((~fin.all(dim=-1).all(dim=-1)).sum()),
            "bit_equal": bool(torch.equal(got, want)),
            "max_abs_err": abs_e, "max_rel_err": rel_e,
-           **timed(lambda: ss.chain_solve_bsr(bvals, blk_nbr, b2, m2, **kw),
-                   "bsr_chain_kernel"),
+           **timed(new, "bsr_chain"),
            "plain_ms": time_ms(lambda: ss.chain_solve_bsr_plain(bvals, blk_nbr, b2,
-                                                                m2, **kw)),
-           "gather_ms": time_ms(lambda: ss.block_values(M, blk_nbr, blk_mask)),
+                                                                m2, **kw), reps=5),
+           "gather_ms_before": time_ms(lambda: ss.block_values(M, blk_nbr, blk_mask)),
+           "gather_ms_after": 0.0, "launched": launched,
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    if prev is not None and "bsr_chain" in prev.has:
+        def old():
+            return prev.bsr_chain(bvals, blk_nbr, b2, m2, **kw)
+
+        def old_gathered():
+            return prev.bsr_chain(ss.block_values(M, blk_nbr, blk_mask).contiguous(),
+                                  blk_nbr, b2, m2, **kw)
+
+        row.update(_versus_prev(old, new, (got, sweeps), "bsr_chain", f"bsr_chain {label}",
+                                "f4ca93a"))
+        turns = [time_ms(old_gathered), time_ms(new), time_ms(new), time_ms(old_gathered)]
+        row.update({"prev_with_gather_ms": (turns[0] + turns[3]) / 2,
+                    "abba_with_gather_ms": turns,
+                    "speedup_with_gather": (turns[0] + turns[3]) / (turns[1] + turns[2])})
+    else:
+        row.update({"prev_ms": None, "prev_commit": "f4ca93a"})
     emit({"phase": "kernel", "name": "bsr_chain", "case": label, **row})
     return row
 
@@ -745,8 +889,9 @@ def _tagged_nbr_row(label, inst, route, improper):
     return row
 
 
-def phase_sparse_kernels():
-    """The metro path's kernels vs their plain versions at its shapes."""
+def phase_sparse_kernels(prev=None):
+    """The metro path's kernels vs their plain versions at its shapes (and
+    with ``prev`` the redesigned ``bsr_chain`` against its earlier version)."""
     from _torch_cases import with_loops
     from repro_torch.core import engine, gp, marginals, network, traffic
     from repro_torch.kernels import ops
@@ -759,22 +904,22 @@ def phase_sparse_kernels():
     m = marginals.marginals(metro, phi, fl)
     cands, _, _ = engine.ladder_candidates(metro, phi, 0.1)
     bsr_rows.append(_bsr_row("metro-sw-traffic", metro, phi.e,
-                             *traffic.chain_inputs(metro, phi), 1))
+                             *traffic.chain_inputs(metro, phi), 1, prev=prev))
     bsr_rows.append(_bsr_row(
         "metro-sw-marginals", metro, phi.e,
-        marginals.pdt_base(metro, phi, m.Dp, m.Cp), phi.c, 0, True, True))
+        marginals.pdt_base(metro, phi, m.Dp, m.Cp), phi.c, 0, True, True, prev=prev))
     route = phi.e > 0.0
     tag_rows.append(_tagged_nbr_row(
         "metro-sw", metro, route,
         route & (m.pdt[:, :, None, :] > m.pdt[:, :, :, None] + engine.BLOCK_EPS)))
     bsr_rows.append(_bsr_row("metro-sw-ladder", metro, cands.e,
-                             *traffic.chain_inputs(metro, cands), 1))
+                             *traffic.chain_inputs(metro, cands), 1, prev=prev))
     del cands, fl, m
     # metro-geant V=1000: the widest block rows (BD=27)
     geant = network.metro_instance("geant", 1000)
     gphi = gp.init_phi(geant)
     bsr_rows.append(_bsr_row("metro-geant-traffic", geant, gphi.e,
-                             *traffic.chain_inputs(geant, gphi), 1))
+                             *traffic.chain_inputs(geant, gphi), 1, prev=prev))
     # congested sw-queue: a 10-iteration iterate's ladder, three members
     # made loopy (the latch and the cap), and stale-marginal tagged inputs
     hot = network.with_sparse(network.table_ii_instance("sw-queue", rate_scale=2.0))
@@ -782,7 +927,7 @@ def phase_sparse_kernels():
     hc, _, _ = engine.ladder_candidates(hot, hphi, 0.1)
     loopy = hc._replace(e=with_loops(hc.e, hot.r, hot.out_nbr))
     row = _bsr_row("sw-queue-ladder-loopy", hot, loopy.e,
-                   *traffic.chain_inputs(hot, loopy), 1)
+                   *traffic.chain_inputs(hot, loopy), 1, prev=prev)
     require(row["members_at_cap"] >= 1 and row["members_not_finite"] >= 1,
             "bsr_chain loopy case: one member at the cap, one latched")
     bsr_rows.append(row)
@@ -909,7 +1054,7 @@ def phase_metro_profile(ms_per_step: float) -> None:
     busy = sum(per_step.values())
     traced = busy > 0
     ours = {name: sum(v for k, v in per_step.items() if sym in k)
-            for name, sym in (("bsr_chain", "bsr_chain_kernel"),
+            for name, sym in (("bsr_chain", "bsr_chain"),
                               ("tagged_nbr", "tagged_nbr_kernel"))}
     top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
     emit({"phase": "metro_profile", "steps": steps,
@@ -919,6 +1064,271 @@ def phase_metro_profile(ms_per_step: float) -> None:
           "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
           "idle_share": 1 - busy / ms_per_step if traced else None,
           "top": [[k[:80], v] for v, k in top[:10]]})
+
+# ---------------------------------------------------------------------------
+# The dense route above the kernels' shared-memory limits (V = 300, 600, 1000)
+# ---------------------------------------------------------------------------
+
+DENSE_SCALE_V = (300, 600, 1000)
+DENSE_SOLVE_V = (300, 600)        # benchmarks/gp_scaling.py's dense leg
+ROUTE_TOL = 1e-5                  # dense route vs sparse route, relative
+
+
+def _dense_iterate(V):
+    """``without_sparse(metro_instance("sw", V))``, its ``init_phi``, the
+    ladder candidates there, and the marginals' ``pdt``."""
+    from repro_torch.core import engine, gp, marginals, network
+
+    inst = network.without_sparse(network.metro_instance("sw", V))
+    phi = gp.init_phi(inst)
+    cands, _, _ = engine.ladder_candidates(inst, phi, 0.1)
+    return inst, phi, cands, marginals.marginals(inst, phi).pdt
+
+
+def phase_dense_scale_kernels(inputs):
+    """``lu_factor``, ``chain_solve``, ``lu_solve`` and ``tagged`` in their
+    global-memory variants against their plain versions at V = 300, 600 and
+    1000: on the stage systems and ladder candidates of
+    ``without_sparse(metro_instance("sw", V))`` (within 1e-5, the ``ok``
+    flags equal; ``torch.linalg.lu_factor`` and ``lu_solve`` beside them)
+    and on the seeded cases of ``_torch_cases.dense_scale_cases`` (a
+    singular, a tiny and a loopy member)."""
+    import torch
+    from _torch_cases import case_id, check_dense_digest, dense_scale_cases, digest_key
+    from repro_torch.core import engine, traffic
+    from repro_torch.kernels import batched_solve as bs
+    from repro_torch.kernels import blocked_sets as bset
+    from repro_torch.kernels import ops
+
+    rows = {"lu_factor": [], "chain_solve": [], "lu_solve": [], "tagged": []}
+    for V in DENSE_SCALE_V:
+        inst, phi, cands, pdt = _dense_iterate(V)
+        eye = torch.eye(V, device="cuda")
+        mats = (eye - cands.e).reshape(-1, V, V).contiguous()
+        B = mats.shape[0]
+        (lu, ok), want = bs.lu_factor(mats, with_ok=True), bs.lu_factor_plain(mats)
+        require(torch.equal(ok, bs.factor_ok(want)) and torch.equal(ok, bs.factor_ok(lu)),
+                f"lu_factor V={V}: ok flags")
+        abs_e, rel_e = rel_err(lu[ok], want[ok])
+        require(rel_e <= 1e-5, f"lu_factor V={V}: rel err {rel_e}")
+        flops = B * sum(2 * (V - k - 1) ** 2 + (V - k - 1) for k in range(V - 1))
+        b_ms, b_by = bound(2 * mats.numel() * 4 + B, flops)
+        row = {"case": f"metro-sw-V{V}-ladder", "shape": [B, V, V],
+               "variant": bs.lu_factor_plan(V)["variant"], "members_not_ok": int((~ok).sum()),
+               "max_abs_err": abs_e, "max_rel_err": rel_e,
+               **timed(lambda: bs.lu_factor(mats), "lu_kernel_global"),
+               "plain_ms": time_ms(lambda: bs.lu_factor_plain(mats), reps=1),
+               "library_ms": time_ms(lambda: torch.linalg.lu_factor(mats), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by, "prev_ms": None, "prev_commit": None}
+        emit({"phase": "kernel", "name": "lu_factor", **row})
+        rows["lu_factor"].append(row)
+
+        # the ladder's traffic sweep on its factors
+        fa = traffic.stage_factors(cands.e)
+        base, mult = traffic.chain_inputs(inst, cands)
+        K = base.shape[-2]
+        lu3 = fa.lu.reshape(-1, K, V, V).contiguous()
+        b2, m2 = base.reshape(-1, K, V).contiguous(), mult.reshape(-1, K, V).contiguous()
+        Bc = b2.shape[0]
+        got = bs.chain_solve(lu3, b2, m2, trans=1)
+        want = bs.chain_solve_plain(lu3, b2, m2, trans=1)
+        okc = fa.ok.reshape(Bc, K).all(-1)
+        require(torch.equal(torch.isfinite(got).all(-1).all(-1) & okc,
+                            torch.isfinite(want).all(-1).all(-1) & okc),
+                f"chain_solve V={V}: finite chains")
+        abs_e, rel_e = rel_err(got[okc], want[okc])
+        require(rel_e <= 1e-5, f"chain_solve V={V}: rel err {rel_e}")
+        b_ms, b_by = bound(Bc * K * (V * V + 3 * V) * 4, Bc * K * (2 * V * V + 2 * V))
+        row = {"case": f"metro-sw-V{V}-ladder", "shape": [Bc, K, V], "trans": 1,
+               "variant": bs.chain_solve_plan(V)["variant"],
+               "max_abs_err": abs_e, "max_rel_err": rel_e,
+               **timed(lambda: bs.chain_solve(lu3, b2, m2, trans=1), "chain_kernel_strips"),
+               "plain_ms": time_ms(lambda: bs.chain_solve_plain(lu3, b2, m2, trans=1), reps=1),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "prev_ms": None, "prev_commit": None}
+        emit({"phase": "kernel", "name": "chain_solve", **row})
+        rows["chain_solve"].append(row)
+
+        # lu_solve: the iterate's stage systems, traffic right-hand sides
+        fi = traffic.stage_factors(phi.e)
+        lui = fi.lu.reshape(-1, V, V).contiguous()
+        rhs = traffic.chain_inputs(inst, phi)[0].reshape(-1, V).contiguous()
+        Bs = lui.shape[0]
+        got = bs.lu_solve(lui, rhs, trans=1)
+        want = bs.lu_solve_plain(lui, rhs, trans=1)
+        abs_e, rel_e = rel_err(got, want)
+        require(rel_e <= 1e-5, f"lu_solve V={V}: rel err {rel_e}")
+        piv = torch.arange(1, V + 1, dtype=torch.int32, device="cuda").expand(Bs, V).contiguous()
+        b_ms, b_by = bound(Bs * (V * V + 2 * V) * 4, 2 * Bs * V * V)
+        row = {"case": f"metro-sw-V{V}-iterate-trans1", "shape": [Bs, V, V], "trans": 1,
+               "variant": bs.lu_solve_plan(V)["variant"],
+               "max_abs_err": abs_e, "max_rel_err": rel_e,
+               **timed(lambda: bs.lu_solve(lui, rhs, trans=1), "solve_kernel_strips"),
+               "plain_ms": time_ms(lambda: bs.lu_solve_plain(lui, rhs, trans=1), reps=1),
+               "library_ms": time_ms(lambda: torch.linalg.lu_solve(lui, piv, rhs[..., None],
+                                                                   adjoint=True), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel", "name": "lu_solve", **row})
+        rows["lu_solve"].append(row)
+
+        # tagged: the iterate's blocked-set inputs (stale-marginal improper
+        # links on the ladder's first rung make the sweep do work)
+        route = cands.e[1] > 0.0
+        improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
+        Vp, W = bset.padded_nodes(V)
+
+        def packed(x):
+            bits = bset.pack_bits(x.reshape(-1, V, V))
+            return torch.cat([bits, bits.new_zeros((bits.shape[0], Vp - V, W))],
+                             dim=1).contiguous()
+
+        r, i = packed(route), packed(improper)
+        got, want = bset.tagged(r, i), bset.tagged_plain(r, i)
+        require(torch.equal(got, want), f"tagged V={V}: words bit-equal")
+        require(torch.equal(ops.blocked_tagged(route, improper).reshape(-1, V),
+                            bset.unpack_bits(want, V)), f"tagged V={V}: through ops")
+        b_ms, b_by = bound(2 * r.numel() * 4 + got.numel() * 4,
+                           3 * _tagged_rounds(r, i) * Vp * W)
+        row = {"case": f"metro-sw-V{V}", "shape": [r.shape[0], Vp, W],
+               "variant": bset.tagged_plan(Vp, W)["variant"],
+               "tagged_nodes": int(bset.unpack_bits(got, V).sum()),
+               "improper_links": int(improper.sum()), "max_abs_err": 0.0,
+               **timed(lambda: bset.tagged(r, i), "tagged_kernel"),
+               "plain_ms": time_ms(lambda: bset.tagged_plain(r, i), reps=1),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel", "name": "tagged", **row})
+        rows["tagged"].append(row)
+        del inst, phi, cands, pdt, mats, lu, fa, lu3, fi
+    failed = []
+    for case in dense_scale_cases():
+        rep = check_dense_digest(case, None, inputs=inputs[digest_key(case)].result())
+        emit({"phase": "kernel", "name": case["kernel"], "case": case_id(case),
+              "seeded": True, **{k: rep[k] for k in ("ok_equal", "finite_equal",
+                                                     "max_abs_diff", "max_rel_err")
+                                 if k in rep}})
+        if not (rep.get("ok_equal", True) and rep["finite_equal"]
+                and rep["max_rel_err"] <= 1e-5):
+            failed.append(rep["case"])
+    require(not failed, f"dense scale seeded cases: {failed}")
+    ops.reset_launch_counts()
+    return rows
+
+
+def phase_dense_scale(ref):
+    """The dense route at V = 300 and 600 (``benchmarks/gp_scaling.py``'s
+    dense leg): ``gp.solve(without_sparse(metro_instance("sw", V)))``, every
+    launch counted, held against the port's own sparse route on the same
+    instance (the default solve's count and cost history, a latch-off
+    solve's cost history and final strategy, within 1e-5; one step's rung
+    costs, rung and every ladder candidate's stage traffic and flows through
+    either route's stage solver, within 1e-5) and at V=300 against the
+    reference's ``solver="dense"`` solve (``tests/data/
+    torch_ref_dense_sw300.npz``: the traffic and marginals at ``init_phi``,
+    the default solve's count and history, the latch-off history and final
+    strategy on the out-neighbor lists)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, gp, marginals, network, traffic
+    from repro_torch.kernels import ops
+
+    n_off = int(ref["latch_off_iterations"])
+    for V in DENSE_SOLVE_V:
+        sparse = network.metro_instance("sw", V)
+        dense = network.without_sparse(sparse)
+        require(traffic.resolve_solver("auto", dense) == "batched_lu"
+                and traffic.resolve_solver("auto", sparse) == "sparse",
+                f"dense_scale V={V}: the two routes")
+        phi0 = gp.init_phi(dense)
+        runs = {}
+        for route, inst in (("dense", dense), ("sparse", sparse)):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = gp.solve(inst, phi0, alpha=0.1, max_iters=400)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            t0 = time.perf_counter()
+            off = gp.solve(inst, phi0, alpha=0.1, max_iters=n_off, patience=10**6, tol=-1.0)
+            torch.cuda.synchronize()
+            runs[route] = (res, off, launches, wall, (time.perf_counter() - t0) / n_off * 1e3)
+        (rd, od, ld, wd, msd), (rs, os_, ls, ws, mss) = runs["dense"], runs["sparse"]
+        require(ld["lu_factor"] > 0 and ld["chain_solve"] > 0 and ld["tagged"] > 0
+                and ld["bsr_chain"] == ld["tagged_nbr"] == 0,
+                f"dense_scale V={V}: the dense kernels run the dense route: {ld}")
+        require(ls["lu_factor"] == ls["chain_solve"] == ls["tagged"] == 0,
+                f"dense_scale V={V}: the sparse route factors nothing: {ls}")
+        hist_rel = (_rel_hist(rd.cost_history, rs.cost_history.cpu())
+                    if rd.iterations == rs.iterations else None)
+        off_rel = _rel_hist(od.cost_history, os_.cost_history.cpu())
+        phi_route = max(float((od.phi.e - os_.phi.e).abs().max()),
+                        float((od.phi.c - os_.phi.c).abs().max()))
+        # one step's ladder on its kernel inputs, through either route
+        a = torch.tensor(0.1, device="cuda")
+        sd, ss_ = engine.gp_step(dense, phi0, a), engine.gp_step(sparse, phi0, a)
+        cands, _, _ = engine.ladder_candidates(sparse, phi0, a)
+        fd = traffic.flows(dense.lifted, cands, solver="batched_lu")
+        fs = traffic.flows(sparse.lifted, cands, solver="sparse")
+        def route_rel(x, y):
+            fin = torch.isfinite(y)
+            if not torch.equal(torch.isfinite(x), fin):
+                return float("inf")
+            return rel_err(x, y, fin)[1] if bool(fin.any()) else 0.0
+
+        ladder = {"rung_equal": bool(torch.equal(sd.rung, ss_.rung)),
+                  "ladder_costs_rel": route_rel(sd.ladder_costs, ss_.ladder_costs),
+                  **{f"{f}_rel": route_rel(getattr(fd, f), getattr(fs, f))
+                     for f in ("t", "g", "F", "G")}}
+        line = {"phase": "dense_scale", "V": V, "instance": f"without_sparse(metro_instance"
+                f"('sw', {V}))", "iterations": rd.iterations,
+                "sparse_iterations": rs.iterations, "cost_history_rel_sparse": hist_rel,
+                "final_cost": rd.final_cost, "latch_off_iterations": od.iterations,
+                "latch_off_rel_sparse": off_rel, "latch_off_phi_max_abs_sparse": phi_route,
+                "ladder_vs_sparse": ladder, "launches_dense": ld,
+                "wall_s_dense": wd, "wall_s_sparse": ws,
+                "latch_off_ms_per_step_dense": msd, "latch_off_ms_per_step_sparse": mss}
+        checks = [(hist_rel is not None and hist_rel <= ROUTE_TOL,
+                   f"default solves {rd.iterations} / {rs.iterations}, history {hist_rel}"),
+                  (off_rel <= ROUTE_TOL, f"latch-off history vs sparse {off_rel}"),
+                  (phi_route <= PHI_TOL, f"latch-off strategy vs sparse {phi_route}"),
+                  (ladder["rung_equal"] and all(v <= ROUTE_TOL for k, v in ladder.items()
+                                                if k != "rung_equal"), f"ladder {ladder}")]
+        if V == int(ref["V"]):
+            t_init, _ = traffic.stage_traffic(dense, phi0)
+            pdt_init = marginals.marginals(dense, phi0).pdt
+            nbr, mask = sparse.out_nbr, sparse.out_mask
+            e_nbr = torch.where(mask, torch.gather(od.phi.e, -1, nbr.expand(
+                od.phi.e.shape[:-1] + nbr.shape[-1:])), 0.0)
+            golden = {"t0_rel": rel_err(t_init, torch.from_numpy(ref["t0"]).cuda())[1],
+                      "pdt0_rel": rel_err(pdt_init, torch.from_numpy(ref["pdt0"]).cuda())[1],
+                      "reference_iterations": int(ref["iterations"]),
+                      "cost_history_rel": (_rel_hist(rd.cost_history, ref["cost_history"]
+                                                     .astype(np.float64))
+                                           if rd.iterations == int(ref["iterations"])
+                                           else None),
+                      "latch_off_rel": _rel_hist(od.cost_history,
+                                                 ref["latch_off_cost_history"]
+                                                 .astype(np.float64)),
+                      "latch_off_phi_max_abs": max(
+                          float((e_nbr - torch.from_numpy(ref["latch_off_phi_e_nbr"]).cuda())
+                                .abs().max()),
+                          float((od.phi.c - torch.from_numpy(ref["latch_off_phi_c"]).cuda())
+                                .abs().max()))}
+            line["reference_dense"] = golden
+            checks += [(golden["t0_rel"] <= 1e-5 and golden["pdt0_rel"] <= 1e-5,
+                        f"t0/pdt0 vs the reference {golden}"),
+                       (golden["cost_history_rel"] is not None
+                        and golden["cost_history_rel"] <= 1e-5,
+                        f"default solve vs the reference {golden}"),
+                       (golden["latch_off_rel"] <= 1e-5
+                        and golden["latch_off_phi_max_abs"] <= PHI_TOL,
+                        f"latch-off solve vs the reference {golden}")]
+        emit(line)
+        for ok, what in checks:
+            require(ok, f"dense_scale V={V}: {what}")
+        del sparse, dense, runs, cands, fd, fs
+    ops.reset_launch_counts()
+
 
 # ---------------------------------------------------------------------------
 # The edge-serving path: the model kernels, the chain instance, the forwards
@@ -1478,13 +1888,37 @@ def phase_oracle():
     return {k: launches[k] for k in ("lu_solve", "propagate_step")}
 
 
-def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None):
+# Member lines of the sweep phases that failed their check: every sweep
+# runs to its end, and the phases fail together after the last one.
+SWEEP_FAILURES: list = []
+KNOWN_SEEN: set = set()        # the known faults the sweep phases met
+
+
+LOCAL_STEPS: dict = {}
+
+
+def _local_steps(key, inst, alpha, masks_fn, n):
+    """``_torch_cases.local_steps`` of one member, once per member and step
+    count (``key``: figure, solver, member): its batched and one-by-one
+    lines ask for the same float64 steps."""
+    from _torch_cases import local_steps
+
+    if (key, n) not in LOCAL_STEPS:
+        LOCAL_STEPS[key, n] = local_steps(inst, n, alpha=alpha, masks_fn=masks_fn)
+    return LOCAL_STEPS[key, n]
+
+
+def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None,
+             own_more=()):
     """One JSON line per member of a sweep, held to the golden file
     (``_torch_cases.sweep_parity``, with the reference's own other runs of
     the member and the port's ``own`` other sweeps of the family as
-    witnesses; ``chained_parity`` along a chain)."""
-    from _torch_cases import (certify, chained_parity, golden_member, golden_witnesses,
-                              local_steps, sweep_parity)
+    witnesses, and the runs ``f(i)`` of member i for ``f`` in ``own_more``,
+    made only where its line fails without them: a witness can only make a
+    line pass, so the verdict is the one with every witness;
+    ``chained_parity`` along a chain)."""
+    from _torch_cases import (SWEEP_KNOWN_FAULTS, certify, chained_parity, golden_member,
+                              golden_witnesses, known_fault_holds, sweep_parity)
     from repro_torch.core import baselines
 
     labels = [sc.label for sc in res.scenarios]
@@ -1500,18 +1934,25 @@ def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None):
             # where the golden file has it (Fig. 6, Fig. 5's six small)
             ser = way == "serial" and golden_member(z, fig, solver + "-serial", lab)
             refs.append(ser or golden_member(z, fig, solver, lab))
-            reports.append(sweep_parity(
-                r, refs[-1], max_iters=max_iters,
-                own=[o.results[i] for o in own],
+            check = functools.partial(
+                sweep_parity, r, refs[-1], max_iters=max_iters,
                 certify=functools.partial(certify, res.scenarios[i].instance, r.phi,
                                           baselines.BASELINE_MASKS.get(solver)),
                 local=(None if solver == "GP-accel" else functools.partial(
-                    local_steps, res.scenarios[i].instance, alpha=alpha,
-                    masks_fn=baselines.BASELINE_MASKS.get(solver))),
-                **golden_witnesses(z, fig, solver, lab, serial=bool(ser))))
+                    _local_steps, (fig, solver, lab), res.scenarios[i].instance, alpha,
+                    baselines.BASELINE_MASKS.get(solver))),
+                **golden_witnesses(z, fig, solver, lab, serial=bool(ser)))
+            rep = check(own=[o.results[i] for o in own])
+            if not rep["ok"] and own_more:
+                rep = check(own=[o.results[i] for o in own] + [f(i) for f in own_more])
+            reports.append(rep)
     out = {}
     for i, (sc, r, ref, rep) in enumerate(zip(res.scenarios, res.results, refs, reports)):
+        known = SWEEP_KNOWN_FAULTS["cuda"].get((fig, solver, way, sc.label))
+        if known:
+            KNOWN_SEEN.add((fig, solver, way, sc.label))
         emit({"phase": "sweep", "fig": fig, "solver": solver, "way": way,
+              "known_fault": known and known["reason"],
               "member": sc.label, "V": sc.instance.V, "final_cost": r.final_cost,
               "iterations": r.iterations,
               "seconds": seconds[i] if seconds else None,
@@ -1524,36 +1965,61 @@ def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None):
                                          "stall_witness", "first_departure",
                                          "self_departure", "self_witness",
                                          "local_witness", "start_rel")}})
-        require(rep["ok"], f"{fig} {solver} {way} {sc.label}: {rep['why']}")
+        if known and rep["ok"]:
+            SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: a known fault passes "
+                                  f"now; take it out of _torch_cases.SWEEP_KNOWN_FAULTS")
+        elif known and known_fault_holds(rep, known):
+            SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: not as recorded: "
+                                  f"{known_fault_holds(rep, known)}")
+        elif not known and not rep["ok"]:
+            SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: {rep['why']}")
         out[sc.label] = r.final_cost
     return out
 
 
 def phase_sweep(fig, z):
     """One figure's family, batched and one by one, every member held to
-    the golden file; then the paper's claim at every member."""
+    the golden file; then the paper's claim at every member.  The families
+    of ``HELD_SWEEPS`` (Fig. 7, the ensemble, mixed-topology) run batched
+    only, with the run from a jittered start as the port's own witness:
+    the CPU tests hold their one-by-one runs.  The jittered runs are made
+    only for a family with a member that needs one."""
     import torch
-    from _torch_cases import jittered
+    from _torch_cases import HELD_SWEEPS, jittered
     from repro_torch.core import baselines, scenarios
     from repro_torch.kernels import ops
 
     params = json.loads(str(z["meta"]))[fig]
     fam = scenarios.expand(params["sweep"])
     kw = dict(alpha=params["alpha"], max_iters=params["max_iters"], record=True)
-    solvers = {"GP": {}}
-    if fig == "fig6":
-        solvers["GP-accel"] = {"accel": True}
-    solvers.update({name: {"masks_fn": fn} for name, fn in baselines.BASELINE_MASKS.items()})
+    every = {"GP": {}, "GP-accel": {"accel": True},
+             **{name: {"masks_fn": fn} for name, fn in baselines.BASELINE_MASKS.items()}}
+    names = HELD_SWEEPS.get(fig, ("GP", "GP-accel", "SPOC", "LCOF") if fig == "fig6"
+                            else ("GP", "SPOC", "LCOF"))
+    solvers = {name: every[name] for name in names}
     finals, summary = {}, {}
     for name, extra in solvers.items():
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         bat = scenarios.run_sweep(fam, **kw, **extra)
         launches = ops.launch_counts()
-        # the same sweep from a start moved by one ulp: where the port's own
-        # trajectory stops being fixed by float32 arithmetic
-        jit = scenarios.run_sweep(fam, **kw, **{**extra, "masks_fn": jittered(
-            extra.get("masks_fn"))})
+        require(all(launches[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
+                f"{fig} {name}: the dense route's kernels launched: {launches}")
+        # the same sweep from a start moved by one ulp (where the port's own
+        # trajectory stops being fixed by float32 arithmetic), run once, and
+        # only if a member's line needs it
+        jit_sweep = functools.cache(lambda extra=extra: scenarios.run_sweep(
+            fam, **kw, **{**extra, "masks_fn": jittered(extra.get("masks_fn"))}))
+
+        def jit(i):
+            return jit_sweep().results[i]
+        if fig in HELD_SWEEPS:
+            finals[name] = _members(fig, name, "batched", bat, z, params["max_iters"],
+                                    params["alpha"], own_more=(jit,))
+            summary[name] = {"batched_s": bat.seconds, "groups": bat.n_batches,
+                             "iterations_batched": sum(r.iterations for r in bat.results),
+                             "launches_batched": launches}
+            continue
         secs, ser_results = [], []
         for sc in fam:
             one = scenarios.run_sweep_serial([sc], **kw, **extra)
@@ -1561,9 +2027,15 @@ def phase_sweep(fig, z):
             ser_results.extend(one.results)
         ser = scenarios.SweepResult(fam, ser_results, sum(secs), len(fam))
         finals[name] = _members(fig, name, "batched", bat, z, params["max_iters"],
-                                params["alpha"], own=(jit, ser))
+                                params["alpha"], own=(ser,), own_more=(jit,))
+        # an accelerated member has no float64 local steps; its one-by-one
+        # line may also take its one-by-one run from the jittered start
+        jser = () if name != "GP-accel" else (lambda i: scenarios.run_sweep_serial(
+            [fam[i]], **kw, **{**extra, "masks_fn": jittered(extra.get("masks_fn"))}
+        ).results[0],)
         ser_finals = _members(fig, name, "serial", ser, z, params["max_iters"],
-                              params["alpha"], own=(bat, jit), seconds=secs)
+                              params["alpha"], own=(bat,), seconds=secs,
+                              own_more=(jit, *jser))
         bs_rel = {lab: abs(finals[name][lab] - c) / abs(c) for lab, c in ser_finals.items()}
         summary[name] = {"batched_s": bat.seconds, "serial_s": ser.seconds,
                          "groups": bat.n_batches,
@@ -1571,21 +2043,18 @@ def phase_sweep(fig, z):
                          "iterations_serial": sum(r.iterations for r in ser.results),
                          "batched_vs_serial_max_rel": max(bs_rel.values()),
                          "launches_batched": launches}
-        if name != "GP-accel":
-            require(max(bs_rel.values()) <= 1e-4,
-                    f"{fig} {name}: batched vs serial {bs_rel}")
-        require(all(launches[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
-                f"{fig} {name}: the dense route's kernels launched: {launches}")
+        if name != "GP-accel" and not max(bs_rel.values()) <= 1e-4:
+            SWEEP_FAILURES.append(f"{fig} {name}: batched vs serial {bs_rel}")
     if fig == "fig6":
         ch = scenarios.run_sweep_chained(fam, **kw)
         _members(fig, "GP", "chained", ch, z, params["max_iters"], params["alpha"])
         summary["GP-chained"] = {"seconds": ch.seconds,
                                  "iterations": sum(r.iterations for r in ch.results)}
-    # the paper's claim, where the reference's own golden runs have it; on
-    # a member where the reference's GP stops above a baseline (Fig. 5
-    # connected-er and geant: its stall latch), within 1e-4
+    # the paper's claim (Figs. 5 and 6), where the reference's own golden
+    # runs have it; on a member where the reference's GP stops above a
+    # baseline (Fig. 5 connected-er and geant: its stall latch), within 1e-4
     claim = {}
-    for sc in fam:
+    for sc in (fam if fig in ("fig6", "fig5") else ()):
         lab = sc.label
         for base in ("SPOC", "LCOF"):
             gap = (finals["GP"][lab] - finals[base][lab]) / finals[base][lab]
@@ -1594,7 +2063,8 @@ def phase_sweep(fig, z):
             lim = CLAIM_TOL if rg <= CLAIM_TOL else 1e-4
             claim[f"{lab} vs {base}"] = {"gp": finals["GP"][lab], base: finals[base][lab],
                                          "gap": gap, "reference_gap": rg, "limit": lim}
-            require(gap <= lim, f"{fig} claim {lab} GP vs {base}: {gap} > {lim}")
+            if not gap <= lim:
+                SWEEP_FAILURES.append(f"{fig} claim {lab} GP vs {base}: {gap} > {lim}")
     emit({"phase": "sweep", "fig": fig, "summary": summary, "claim": claim})
 
 
@@ -1638,6 +2108,18 @@ def phase_sweep_profile():
               "top": [[k[:80], v] for v, k in top[:8]]})
 
 
+PHASE_SECONDS: dict = {}
+
+
+def phased(name, fn, *args):
+    """Run one phase, adding its wall seconds to ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1645,9 +2127,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", metavar="DIR",
-                    help="a directory holding the earlier batched_lu.cu, chain_solve.cu "
-                         "and two_sweep.cuh: build them and time them beside the "
-                         "redesigned kernels (prev_ms)")
+                    help="a directory holding earlier bsr_chain.cu (commit f4ca93a) "
+                         "and/or batched_lu.cu, chain_solve.cu and two_sweep.cuh "
+                         "(commit 2e984dd): "
+                         "build those it holds and time them beside the redesigned "
+                         "kernels (prev_ms)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1656,11 +2140,13 @@ def main(argv=None) -> int:
     src = os.path.join(HERE, "src")
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
-                                                   GOLDEN_SWEEP, DIGESTS))):
+                                                   GOLDEN_SWEEP, GOLDEN_DENSE, DIGESTS,
+                                                   BSR_DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
     import repro_torch  # noqa: F401  (sets the TF32 flags)
+    from _torch_cases import HELD_SWEEPS
 
     import numpy as np
 
@@ -1670,36 +2156,56 @@ def main(argv=None) -> int:
     with open(GOLDEN_EDGE) as fh:
         ref_edge = json.load(fh)
     smi = phase_device()
-    prev = phase_build(args.prev)
-    kernels = phase_kernels(prev)
-    phase_digests()
-    launches, ms_per_step = phase_solve(ref)
-    phase_profile(ms_per_step)
-    phase_parity(ref)
-    kernels.update(phase_sparse_kernels())
-    metro_launches, metro_ms_per_step = phase_metro(ref_metro)
-    phase_metro_profile(metro_ms_per_step)
-    kernels.update(phase_model_kernels())
-    chains = phase_edge_gp(ref_edge)
-    model_launches = phase_edge_forwards(chains)
-    kernels.update(phase_solve_kernels())
-    oracle_launches = phase_oracle()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        inputs = digest_case_inputs(pool)
+        prev = phased("build", phase_build, args.prev)
+        phased("inputs", concurrent.futures.wait, list(inputs.values()))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    kernels = phased("kernel", phase_kernels, prev)
+    phased("digests", phase_digests, inputs)
+    launches, ms_per_step = phased("solve", phase_solve, ref)
+    phased("profile", phase_profile, ms_per_step)
+    phased("parity", phase_parity, ref)
+    kernels.update(phased("sparse_kernels", phase_sparse_kernels, prev))
+    metro_launches, metro_ms_per_step = phased("metro", phase_metro, ref_metro)
+    phased("metro_profile", phase_metro_profile, metro_ms_per_step)
+    for name, rows in phased("dense_scale_kernels", phase_dense_scale_kernels,
+                             inputs).items():
+        kernels.setdefault(name, []).extend(rows)
+    with np.load(GOLDEN_DENSE) as z:
+        phased("dense_scale", phase_dense_scale, {k: z[k] for k in z.files})
+    kernels.update(phased("model_kernels", phase_model_kernels))
+    chains = phased("edge_gp", phase_edge_gp, ref_edge)
+    model_launches = phased("edge_forwards", phase_edge_forwards, chains)
+    for name, rows in phased("solve_kernels", phase_solve_kernels).items():
+        kernels[name] = rows + kernels.get(name, [])
+    oracle_launches = phased("oracle", phase_oracle)
     with np.load(GOLDEN_SWEEP) as z:
         ref_sweep = {k: z[k] for k in z.files}
-    phase_sweep("fig6", ref_sweep)
-    phase_sweep("fig5", ref_sweep)
-    phase_sweep_profile()
+    for fig in ("fig6", "fig5", *HELD_SWEEPS):
+        phased(f"sweep_{fig}", phase_sweep, fig, ref_sweep)
+    emit({"phase": "seconds", **PHASE_SECONDS})
+    from _torch_cases import SWEEP_KNOWN_FAULTS
+
+    unseen = sorted(set(SWEEP_KNOWN_FAULTS["cuda"]) - KNOWN_SEEN)
+    require(not SWEEP_FAILURES and not unseen,
+            f"sweep members: {SWEEP_FAILURES}; known faults not run: {unseen}")
+    phased("sweep_profile", phase_sweep_profile)
     # each kernel's launches come from the main path it lies on; lu_solve
     # and propagate_step lie on no solver path: theirs are the oracle phase's
     launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
     launches.update(model_launches)
     launches.update(oracle_launches)
 
+    # the main row of each kernel (its main path's shape) among its cases
     meta = {
         "lu_factor": ("src/repro_torch/kernels/csrc/batched_lu.cu",
-                      "src/repro/kernels/batched_solve.py:418", -1),
+                      "src/repro/kernels/batched_solve.py:418", 1),
         "chain_solve": ("src/repro_torch/kernels/csrc/chain_solve.cu",
-                        "src/repro/kernels/batched_solve.py:462", -1),
+                        "src/repro/kernels/batched_solve.py:462", 2),
         "lu_solve": ("src/repro_torch/kernels/csrc/lu_solve.cu",
                      "src/repro/kernels/batched_solve.py:440", 0),
         "tagged": ("src/repro_torch/kernels/csrc/tagged.cu",
@@ -1729,7 +2235,7 @@ def main(argv=None) -> int:
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"],
                      "prev_ms": main_row.get("prev_ms"),
-                     "redesigned_in": main_row.get("redesigned_in"),
+                     "prev_commit": main_row.get("prev_commit"),
                      "shape": main_row["shape"], "cases": rows})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -351,22 +351,40 @@ def _anderson_mix(ax, af, ak, x_k, f_k, reg: float) -> torch.Tensor:
 
     Slots never written (``j < m - ak``) contribute zero rows; the Tikhonov
     term keeps the Gram matrix invertible, and their gamma is exactly 0.
-    Every member solves its own system.
+
+    The three products over N run member by member, each as in a
+    one-member solve; the rest runs on the whole batch: elementwise, and
+    the (m, m) systems in one batched solve, which gives each member its
+    one-member solve's bits (LAPACK solves each matrix alone on the CPU;
+    on the card the two agreed bit for bit on random and nearly collinear
+    windows).  A batched float32 product rounds a member's sums by the
+    blocking it picks for the whole batch, which changes with the batch
+    size: one member's ``dF @ f_k`` alone and among 31 others differ in the
+    last bit (on the CPU), and in the 32-seed ensemble that flipped an
+    Anderson acceptance the member did not take alone or in the reference.
+    Sums in a batch-independent order of their own round differently from
+    the one-member products and flipped other members' Anderson decisions
+    against the reference's.
     """
     m = ax.shape[-2]
     valid = (torch.arange(m, device=ax.device)
              >= (m - torch.clamp_max(ak, m))[..., None])           # (..., m)
     zero = f_k.new_zeros(())
     dF = torch.where(valid[..., None], f_k[..., None, :] - af, zero)  # (..., m, N)
-    gram = dF @ dF.transpose(-1, -2)                               # (..., m, m)
-    b = (dF @ f_k[..., None]).squeeze(-1)                          # (..., m)
+    g_k = x_k + f_k
+    dG = g_k[..., None, :] - (ax + af)                             # (..., m, N)
+    lead = f_k.shape[:-1]
+    n = math.prod(lead)
+    dF_n, dG_n, f_n = dF.reshape(n, m, -1), dG.reshape(n, m, -1), f_k.reshape(n, -1, 1)
+    gram = torch.stack([dF_n[i] @ dF_n[i].transpose(0, 1) for i in range(n)])
+    b = torch.stack([dF_n[i] @ f_n[i] for i in range(n)]).squeeze(-1)
     lam = reg * (torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1) / m) + 1e-12
     eye = torch.eye(m, dtype=gram.dtype, device=gram.device)
-    gamma = torch.linalg.solve(gram + lam[..., None, None] * eye, b)
-    gamma = torch.where(valid, gamma, zero)
-    g_k = x_k + f_k
-    g_hist = ax + af                                               # (..., m, N)
-    return g_k - (gamma[..., None, :] @ (g_k[..., None, :] - g_hist)).squeeze(-2)
+    # solve_ex: the solve's own error check would wait on the card
+    gamma = torch.linalg.solve_ex(gram + lam[..., None, None] * eye, b)[0]
+    gamma = torch.where(valid.reshape(n, m), gamma, zero)
+    comb = torch.stack([gamma[i, None, :] @ dG_n[i] for i in range(n)]).squeeze(-2)
+    return g_k - comb.reshape(f_k.shape)
 
 
 def _push_history(buf: torch.Tensor, row: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ whose matrices differ only by a transpose, so one factorization serves both.
     sweeps per stage from the packed factors.
 
 Each wrapper launches its CUDA kernel (``csrc/batched_lu.cu``,
-``csrc/lu_solve.cu``, ``csrc/chain_solve.cu``) for a CUDA tensor and runs the plain PyTorch
+``csrc/lu_solve.cu``, ``csrc/chain_solve.cu``) for a CUDA tensor, in the
+variant its launch plan picks by V (the factor in registers or shared
+memory where it fits, in global memory above V = 239-241), and runs the plain PyTorch
 version of the same arithmetic for a CPU tensor; the plain versions are
 also the on-card oracles of ``chip_smoke.py``.  ``<wrapper>.launches``
 counts kernel launches.
@@ -40,14 +42,16 @@ PIVOT_TINY = 1e-30
 
 
 # lu_factor holds a matrix in registers up to this V (16 x 16 threads of
-# at most 8 x 8 values each), in shared memory above it.
+# at most 8 x 8 values each), in shared memory above it, and in global
+# memory (32-column panels in shared memory) where it does not fit there.
 REG_TILE_MAX_V = 128
 LU_THREADS = 256
 CHAIN_THREADS = 128
-
-
-def _smem_solve(V: int) -> int:
-    return 4 * (V * (V | 1) + V)
+# The global-memory variants (csrc/strip_sweep.cuh, the LU panels).
+STRIP = 32
+STRIP_THREADS = 256
+PANEL_LD = STRIP + 4
+_TILE_FLOATS = STRIP * (STRIP + 1)     # a strip's diagonal block, odd stride
 
 
 def lu_factor_plan(V: int) -> dict:
@@ -56,28 +60,57 @@ def lu_factor_plan(V: int) -> dict:
     ``variant``: "registers" (V <= 128; ``tiles`` = ceil(V / 16) values per
     thread and dimension; in shared memory the published row, column and
     multipliers, 4 x 128 floats, and the V x (V | 1) tile the factor leaves
-    through) or "shared" (the V x (V | 1) tile factored in shared memory).
-    Raises where the tile does not fit (V > 241).
+    through), "shared" (the V x (V | 1) tile factored in shared memory,
+    V <= 241) or "global" (factored in place in global memory by 32-column
+    panels, each eliminated in shared memory at a row stride of 36 floats).
+    Raises where even the panel does not fit (V > 1614).
     """
     tile = 4 * V * (V | 1)
     if V <= REG_TILE_MAX_V:
         plan = {"variant": "registers", "threads": LU_THREADS, "tiles": -(-V // 16),
                 "smem_bytes": 4 * 4 * REG_TILE_MAX_V + tile}
-    else:
+    elif tile <= _build.SMEM_LIMIT:
         plan = {"variant": "shared", "threads": LU_THREADS, "tiles": None,
                 "smem_bytes": tile}
-    _check_smem(plan["smem_bytes"], V, "lu_factor")
+    else:
+        plan = {"variant": "global", "threads": LU_THREADS, "tiles": None,
+                "smem_bytes": 4 * V * PANEL_LD}
+    _check_smem(plan["smem_bytes"], V, "lu_factor", "its 32-column panel")
     return plan
 
 
 def chain_solve_plan(V: int) -> dict:
-    """How :func:`chain_solve` launches at node count V: ``chunks`` =
-    ceil(V / 32) values of the forward sweep's y per lane; the factor,
-    right-hand side, iterate and 2 x 32 gathered partials in shared memory.
-    Raises where they do not fit (V > 239)."""
-    plan = {"threads": CHAIN_THREADS, "chunks": -(-V // 32),
-            "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)}
-    _check_smem(plan["smem_bytes"], V, "chain_solve")
+    """How :func:`chain_solve` launches at node count V.
+
+    ``variant`` "shared" (V <= 239): the factor, right-hand side, iterate
+    and 2 x 32 gathered partials in shared memory, ``chunks`` = ceil(V /
+    32) values of the forward sweep's y per lane; "strips": the factor read
+    from global memory by strips of 32 rows by a 256-thread block, the
+    right-hand side, the iterate and a 32 x 33 diagonal block in shared
+    memory.  Raises where even those do not fit."""
+    smem = 4 * (64 + V * (V | 1) + 2 * V)
+    if smem <= _build.SMEM_LIMIT:
+        plan = {"variant": "shared", "threads": CHAIN_THREADS, "chunks": -(-V // 32),
+                "smem_bytes": smem}
+    else:
+        plan = {"variant": "strips", "threads": STRIP_THREADS, "chunks": None,
+                "smem_bytes": 4 * (2 * V + _TILE_FLOATS)}
+    _check_smem(plan["smem_bytes"], V, "chain_solve", "its right-hand side and iterate")
+    return plan
+
+
+def lu_solve_plan(V: int) -> dict:
+    """How :func:`lu_solve` launches at node count V: ``variant`` "shared"
+    (V <= 240: the V x (V | 1) factor and the right-hand side in shared
+    memory, 128 threads) or "strips" (as :func:`chain_solve_plan`'s, the
+    right-hand side and a 32 x 33 diagonal block in shared memory)."""
+    smem = 4 * (V * (V | 1) + V)
+    if smem <= _build.SMEM_LIMIT:
+        plan = {"variant": "shared", "threads": CHAIN_THREADS, "smem_bytes": smem}
+    else:
+        plan = {"variant": "strips", "threads": STRIP_THREADS,
+                "smem_bytes": 4 * (V + _TILE_FLOATS)}
+    _check_smem(plan["smem_bytes"], V, "lu_solve", "its right-hand side")
     return plan
 
 
@@ -90,13 +123,14 @@ def _check_cuda(x: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_smem(nbytes: int, V: int, what: str) -> None:
-    """One stage's factor lives in shared memory, which caps V near 240."""
+def _check_smem(nbytes: int, V: int, what: str, holds: str) -> None:
+    """Raise where even the global-memory variant's shared memory (``holds``)
+    exceeds what one block may use."""
     if nbytes > _build.SMEM_LIMIT:
         raise ValueError(
-            f"{what}: V={V} needs {nbytes} B of shared memory per block, "
-            f"above the card's {_build.SMEM_LIMIT} B; larger V needs the "
-            f"sparse path (not ported yet)")
+            f"{what}: V={V} needs {nbytes} B of shared memory per block for "
+            f"{holds}, above the card's {_build.SMEM_LIMIT} B; take the sparse "
+            f"route at this size")
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +167,7 @@ def lu_factor(mats: torch.Tensor, *, with_ok: bool = False):
     B, V, V2 = mats.shape
     if V != V2:
         raise ValueError(f"lu_factor: matrices must be square, got {tuple(mats.shape)}")
-    variant = 0 if lu_factor_plan(V)["variant"] == "registers" else 1
+    variant = ("registers", "shared", "global").index(lu_factor_plan(V)["variant"])
     out = torch.empty_like(mats)
     ok = torch.empty(B, dtype=torch.bool, device=mats.device)
     fn = _build.function("batched_lu", "repro_lu_factor",
@@ -193,8 +227,8 @@ def lu_solve_plain(lu: torch.Tensor, rhs: torch.Tensor, *,
 def lu_solve(lu: torch.Tensor, rhs: torch.Tensor, *, trans: int = 0) -> torch.Tensor:
     """Solve packed-LU systems: lu (B, V, V), rhs (B, V) -> (B, V).
 
-    CUDA tensors: one launch of ``csrc/lu_solve.cu``, one block per member,
-    the factor read by column for trans=1.  CPU tensors: the plain version.
+    CUDA tensors: one launch of ``csrc/lu_solve.cu``, one block per member
+    (the variant of :func:`lu_solve_plan`).  CPU tensors: the plain version.
     Identity row permutation (the factors of :func:`lu_factor`).
     """
     if lu.device.type == "cpu":
@@ -207,13 +241,14 @@ def lu_solve(lu: torch.Tensor, rhs: torch.Tensor, *, trans: int = 0) -> torch.Te
                          f"{tuple(rhs.shape)} do not agree")
     if rhs.device != lu.device:
         raise ValueError("lu_solve: all inputs must be on one device")
-    _check_smem(_smem_solve(V), V, "lu_solve")
+    variant = ("shared", "strips").index(lu_solve_plan(V)["variant"])
     out = torch.empty_like(rhs)
     fn = _build.function("lu_solve", "repro_lu_solve",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(lu.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(lu.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, V, int(trans), stream)
+        rc = fn(lu.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, V, int(trans), variant,
+                stream)
     _build.check("lu_solve", rc, "lu_solve")
     lu_solve.launches += 1
     return out
@@ -254,7 +289,8 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
     """Fused chain solve: lu (B, K, V, V), base/mult (B, K, V) -> (B, K, V).
 
     CUDA tensors: one launch of ``csrc/chain_solve.cu``, one block per
-    chain (:func:`chain_solve_plan`).  CPU tensors: the plain version.
+    chain (the variant of :func:`chain_solve_plan`).  CPU tensors: the plain
+    version.
     Identity row permutation (the factors of :func:`lu_factor`).
     """
     if lu.device.type == "cpu":
@@ -270,14 +306,14 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
             f"{tuple(base.shape)}, mult {tuple(mult.shape)} do not agree")
     if base.device != lu.device or mult.device != lu.device:
         raise ValueError("chain_solve: all inputs must be on one device")
-    chain_solve_plan(V)
+    variant = ("shared", "strips").index(chain_solve_plan(V)["variant"])
     out = torch.empty_like(base)
     fn = _build.function("chain_solve", "repro_chain_solve",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     with torch.cuda.device(lu.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(lu.data_ptr(), base.data_ptr(), mult.data_ptr(), out.data_ptr(),
-                B, K, V, int(trans), int(reverse), int(clamp), stream)
+                B, K, V, int(trans), int(reverse), int(clamp), variant, stream)
     _build.check("chain_solve", rc, "chain_solve")
     chain_solve.launches += 1
     return out

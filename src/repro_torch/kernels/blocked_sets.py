@@ -98,11 +98,21 @@ def tagged_plain(route_bits: torch.Tensor, imp_bits: torch.Tensor) -> torch.Tens
     return tb
 
 
+def tagged_plan(Vp: int, W: int) -> dict:
+    """How :func:`tagged` launches: ``variant`` "shared" (both word
+    matrices in shared memory, Vp <= 960) or "global" (read from global
+    memory each round; the two bitsets in shared memory)."""
+    smem = 4 * (2 * Vp * W + 2 * W)
+    if smem <= _build.SMEM_LIMIT:
+        return {"variant": "shared", "smem_bytes": smem}
+    return {"variant": "global", "smem_bytes": 4 * 2 * W}
+
+
 def tagged(route_bits: torch.Tensor, imp_bits: torch.Tensor) -> torch.Tensor:
     """Packed tagged fixed point: (B, Vp, W) int32 x2 -> (B, W) int32 words.
 
-    CUDA tensors: one launch of ``csrc/tagged.cu``, one block per member.
-    CPU tensors: :func:`tagged_plain`.
+    CUDA tensors: one launch of ``csrc/tagged.cu``, one block per member
+    (the variant of :func:`tagged_plan`).  CPU tensors: :func:`tagged_plain`.
     """
     if route_bits.device.type == "cpu":
         return tagged_plain(route_bits, imp_bits)
@@ -115,17 +125,14 @@ def tagged(route_bits: torch.Tensor, imp_bits: torch.Tensor) -> torch.Tensor:
         raise ValueError("tagged: route_bits and imp_bits must match")
     if Vp != W * WORD:
         raise ValueError(f"tagged: Vp={Vp} must equal 32 * W={W * WORD}")
-    smem = 4 * (2 * Vp * W + 2 * W)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"tagged: Vp={Vp} needs {smem} B of shared memory, "
-                         f"above {_build.SMEM_LIMIT} B")
+    variant = ("shared", "global").index(tagged_plan(Vp, W)["variant"])
     out = torch.empty((B, W), dtype=torch.int32, device=route_bits.device)
     fn = _build.function("tagged", "repro_tagged",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(route_bits.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(route_bits.data_ptr(), imp_bits.data_ptr(), out.data_ptr(),
-                B, Vp, W, stream)
+                B, Vp, W, variant, stream)
     _build.check("tagged", rc, "tagged")
     tagged.launches += 1
     return out

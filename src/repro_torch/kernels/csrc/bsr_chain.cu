@@ -9,44 +9,76 @@
 //     while any(x != prev) and i < V + 2:  prev = x; x = sweep(x); ++i
 //     x_k = clamp ? max(x, 0) : x
 //
-// where one sweep is y = b + sum_d bvals[I, d] @ x[block blk_nbr[I, d]] over
-// the nonzero 32 x 32 blocks of the stage matrix only, and any y that is
-// non-finite or beyond 1e12 latches at +inf.  For a loop-free strategy the
-// stage matrix is nilpotent and the loop settles exactly after (DAG depth
-// + 1) sweeps; a loopy ladder candidate runs to the latch or the cap.
+// where one sweep is y = b + sum_d M[I, d] @ x[block blk_nbr[I, d]] over the
+// nonzero 32 x 32 blocks of the stage matrix M = Phi_k (trans=0) or Phi_k^T
+// (trans=1) only, and any y that is non-finite or beyond 1e12 latches at
+// +inf.  For a loop-free strategy the stage matrix is nilpotent and the
+// loop settles exactly after (DAG depth + 1) sweeps; a loopy ladder
+// candidate runs to the latch or the cap.
 //
-// What bounds it: every sweep reads the member's NB * BD blocks of the
-// stage (2.4 MB at metro-sw V = 1000: NB = 32, BD = 18) and does one
-// multiply and one add per block entry, so it is 0.5 flop per byte read
-// and bound by bytes; across the sweeps the blocks are re-read from L2,
-// but the bound counts each input byte once.  What a member waits on is
-// the chain of dependent sweeps (the DAG depth), each one a barrier.
+// What bounds it: the member's unmasked blocks are read once per stage
+// (396 blocks, 1.6 MB a stage at metro-sw V = 1000: NB = 32, BD = 18) and
+// each sweep does one multiply and one add per block entry, 0.5 flop per
+// byte, so the bound is bytes.  What a member waits on is the chain of
+// dependent sweeps (the DAG depth), each one a barrier.
 //
-// Design: one thread block per member, one warp per block row I (NB warps,
-// at most 32; more rows are strided over the warps).  The iterate, the next
-// iterate and the right-hand side (Vp = 32 NB floats each, 12 KB at V =
-// 1000) and the block list live in shared memory.  Lane l owns row
-// I * 32 + l: it reads its row of each block as eight float4 loads and the
-// 32 matching x entries as shared-memory broadcasts.  The sum is in a fixed
-// order shared with the plain PyTorch version (chain_solve_bsr_plain): the
-// 32 products rounded one by one (__fmul_rn), summed by a pairwise tree
-// (p[i] += p[i + h] for h = 16, 8, 4, 2, 1), and the block sums added to b
-// in block-list order (__fadd_rn, no fused multiply-add).  A sweep is thus
-// bit-deterministic, the x == prev exit is exact, and kernel and plain
-// version agree bit for bit and run the same number of sweeps.
-// __syncthreads_or over the per-row "changed" flags ends the loop.
+// What held the earlier design back (as at commit f4ca93a: one 1024-thread
+// block per member, a warp per block row; 1.442 ms for the 36-member ladder on an
+// NVIDIA H100 80GB HBM3 at 700 W, 27x its bound): every sweep re-read the
+// member's whole stage from L2 (about 845 MB over the ladder's 528 sweeps,
+// about 0.6 TB/s from 36 SMs), 3 or 36 members kept 3 or 36 of the 132
+// SMs busy, and a gather (block_values) wrote and re-read a 175 MB copy of
+// the blocks before each launch.
+//
+// Design, for Hopper: one thread-block cluster per member.
+//   * The kernel reads the blocks straight from phi_e (B, K, V, V), the
+//     block lists blk_nbr/blk_mask and trans: no gathered copy.  Masked
+//     slots are zero blocks and are not read.
+//   * The member's NB block rows are split over the cluster's C CTAs
+//     (R = ceil(NB / 16) rows each, 2 at metro sizes, and C the power of
+//     two at or above ceil(NB / R), at most 16 with the non-portable
+//     cluster size).  At the start of each
+//     stage a CTA loads its rows' blocks into its own shared memory (each
+//     block 32 x 33 floats, column by column: conflict-free for the row
+//     reads below, the transpose of trans=1 made on the way in); every
+//     sweep of the stage then reads them from there.  Where R x BD blocks
+//     do not fit (metro-geant, BD = 27: 228 KB) the same kernel streams
+//     them from global memory (L2) every sweep instead: a variant chosen
+//     by shape.
+//   * Every CTA holds the whole iterate, double-buffered.  A sweep: the
+//     CTA's 8 warps form the block sums (lane l owns row l of a block: its
+//     32 products against a shared-memory broadcast of x, rounded one by
+//     one, and the pairwise tree), then a warp per block row (the 8 warps
+//     strided over the rows where a CTA owns more, NB > 128) adds them to
+//     b in block-list order, latches, compares and writes each new
+//     value into every CTA's next buffer (distributed shared memory).  Each
+//     CTA's "changed" flag goes to every CTA the same way, and one cluster
+//     barrier (release/acquire) per sweep replaces __syncthreads_or.
+//
+// Every float operation is the earlier kernel's, in its order: the 32 products
+// __fmul_rn, the tree p[i] + p[i + h] for h = 16, 8, 4, 2, 1, the block
+// sums added to b in block-list order with __fadd_rn (masked slots as zero
+// blocks, as the gathered copy held them), the 1e12 / non-finite latch, the
+// V + 2 cap and the NaN-preserving clamp.  So the outputs and the sweep
+// counts are bit-equal to the earlier kernel's and to the plain PyTorch version
+// (chain_solve_bsr_plain).
 //
 // Padding: rows V..Vp-1 take base = mult = 0, exactly like the reference's
 // zero-padded arrays (so 0 * inf = NaN there latches at +inf as it does in
-// the reference).  The clamp is written so that NaN propagates as
-// jnp.maximum does (fmaxf(NaN, 0) would be 0).
+// the reference), and the blocks' entries beyond V read as 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBs = 32;          // block edge, one row per lane
-constexpr int kMaxWarps = 32;
+constexpr int kLd = kBs + 1;     // a block in shared memory: 32 columns of 33
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
 constexpr float kDiverge = 1e12f;
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
@@ -69,82 +101,187 @@ __device__ __forceinline__ float tree_sum(float (&p)[kBs]) {
   return __fadd_rn(p[0], p[1]);
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-bsr_chain_kernel(const float* __restrict__ bvals, const long long* __restrict__ blk_nbr,
-                 const float* __restrict__ base, const float* __restrict__ mult,
-                 float* __restrict__ out, int* __restrict__ sweeps_out,
-                 int K, int NB, int BD, int V, int reverse, int clamp) {
-  extern __shared__ float s[];
+// Shared memory of one CTA, in floats (the layout of the kernel below).
+__host__ __device__ inline int smem_floats(int NB, int BD, int R, int stream) {
+  return (stream ? 0 : R * BD * kBs * kLd) + 2 * NB * kBs + R * kBs + R * BD * kBs
+         + 2 * kMaxCluster + 2 * R * BD;
+}
+
+// M[I-block row l][J-block column q] of stage matrix `pk` (V x V, row-major),
+// zero beyond V.
+template <int TRANS>
+__device__ __forceinline__ float stage_entry(const float* __restrict__ pk, int V, int I, int J,
+                                             int l, int q) {
+  const int r = I * kBs + l, c = J * kBs + q;
+  if (r >= V || c >= V) return 0.f;
+  return TRANS ? __ldg(pk + static_cast<size_t>(c) * V + r)
+               : __ldg(pk + static_cast<size_t>(r) * V + c);
+}
+
+// C, the cluster size, is a compile-time cluster dimension: the launch is a
+// plain <<<>>> launch (the profiler traces it like the other kernels).
+template <int TRANS, int STREAM, int C>
+__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(kThreads)
+bsr_chain_cluster(const float* __restrict__ phi_e, const long long* __restrict__ blk_nbr,
+                  const bool* __restrict__ blk_mask, const float* __restrict__ base,
+                  const float* __restrict__ mult, float* __restrict__ out,
+                  int* __restrict__ sweeps_out, int K, int NB, int BD, int V, int R,
+                  int reverse, int clamp) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t member = blockIdx.x / C;
+  const int row0 = rank * R;                       // this CTA's first block row
+  const int rows = max(0, min(R, NB - row0));      // and how many it owns
   const int Vp = NB * kBs;
-  float* xa = s;                                    // (Vp,) iterate
-  float* xb = xa + Vp;                              // (Vp,) next iterate
-  float* b = xb + Vp;                               // (Vp,) x_prev, then b
-  int* nbr = reinterpret_cast<int*>(b + Vp);        // (NB, BD) block list
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t member = blockIdx.x;
+  const int pairs = rows * BD;
+
+  extern __shared__ float s[];
+  float* blocks = s;                                            // (R, BD, 32, 33)
+  float* xbuf = blocks + (STREAM ? 0 : R * BD * kBs * kLd);     // (2, Vp) iterate
+  float* b = xbuf + 2 * Vp;                                     // (R, 32) x_prev, then b
+  float* sums = b + R * kBs;                                    // (R, BD, 32) block sums
+  int* flags = reinterpret_cast<int*>(sums + R * BD * kBs);     // (2, 16) changed
+  int* nbr = flags + 2 * kMaxCluster;                           // (R, BD) block list
+  int* msk = nbr + R * BD;                                      // (R, BD) 1 unmasked
+
+  for (int p = threadIdx.x; p < pairs; p += kThreads) {
+    const int I = row0 + p / BD, d = p % BD;
+    nbr[p] = static_cast<int>(blk_nbr[I * BD + d]);
+    msk[p] = blk_mask[I * BD + d] ? 1 : 0;
+  }
+  for (int i = threadIdx.x; i < rows * kBs; i += kThreads) b[i] = 0.f;
+  __syncthreads();
+
   const int cap = V + 2;
-
-  for (int i = threadIdx.x; i < NB * BD; i += blockDim.x) nbr[i] = static_cast<int>(blk_nbr[i]);
-  for (int i = threadIdx.x; i < Vp; i += blockDim.x) b[i] = 0.f;
-
   for (int step = 0; step < K; ++step) {
     const int k = reverse ? K - 1 - step : step;
     const size_t vo = (member * K + k) * static_cast<size_t>(V);
-    const float4* bk = reinterpret_cast<const float4*>(
-        bvals + (member * K + k) * static_cast<size_t>(NB) * BD * kBs * kBs);
-    __syncthreads();  // the previous stage is done with xa, xb and b
-    for (int i = threadIdx.x; i < Vp; i += blockDim.x) {
-      const float bs = i < V ? base[vo + i] : 0.f;
-      const float ml = i < V ? mult[vo + i] : 0.f;
+    const float* pk = phi_e + (member * K + k) * static_cast<size_t>(V) * V;
+    for (int i = threadIdx.x; i < rows * kBs; i += kThreads) {
+      const int r = row0 * kBs + i;
+      const float bs = r < V ? base[vo + r] : 0.f;
+      const float ml = r < V ? mult[vo + r] : 0.f;
       b[i] = __fadd_rn(bs, __fmul_rn(ml, b[i]));   // b held x_prev
-      xa[i] = 0.f;
     }
-    __syncthreads();
-
-    float* x = xa;
-    float* y = xb;
-    int sweeps = 0;
-    for (;;) {
-      int changed = 0;
-      for (int I = warp; I < NB; I += nwarps) {
-        const int r = I * kBs + lane;
-        float acc = b[r];
-        for (int d = 0; d < BD; ++d) {
-          const float* xj = x + nbr[I * BD + d] * kBs;
-          const float4* row = bk + (static_cast<size_t>(I * BD + d) * kBs + lane) * (kBs / 4);
-          float p[kBs];
+    for (int i = threadIdx.x; i < Vp; i += kThreads) xbuf[i] = 0.f;
+    if (!STREAM) {
+      // the stage's blocks of this CTA's rows, a block per warp: 32
+      // independent 128-byte reads of its rows of phi_e (lane = column of
+      // phi_e), kept column by column of M
+      for (int p = warp; p < pairs; p += kWarps) {
+        if (!msk[p]) continue;
+        const int I = row0 + p / BD, J = nbr[p];
+        float* blk = blocks + static_cast<size_t>(p) * kBs * kLd;
+        float v[kBs];
 #pragma unroll
-          for (int q = 0; q < kBs / 4; ++q) {
-            const float4 v = __ldg(row + q);
-            p[4 * q + 0] = __fmul_rn(v.x, xj[4 * q + 0]);
-            p[4 * q + 1] = __fmul_rn(v.y, xj[4 * q + 1]);
-            p[4 * q + 2] = __fmul_rn(v.z, xj[4 * q + 2]);
-            p[4 * q + 3] = __fmul_rn(v.w, xj[4 * q + 3]);
-          }
-          acc = __fadd_rn(acc, tree_sum(p));
+        for (int u = 0; u < kBs; ++u)
+          v[u] = TRANS ? stage_entry<1>(pk, V, I, J, lane, u) : stage_entry<0>(pk, V, I, J, u, lane);
+#pragma unroll
+        for (int u = 0; u < kBs; ++u) {
+          if (TRANS) blk[u * kLd + lane] = v[u];   // M[lane][u] = Phi[J, u][I, lane]
+          else blk[lane * kLd + u] = v[u];         // M[u][lane] = Phi[I, u][J, lane]
         }
+      }
+    }
+    // every CTA's buffers are reset before any peer writes into them
+    cluster.sync();
+
+    int cur = 0, sweeps = 0;
+    for (;;) {
+      const float* x = xbuf + cur * Vp;
+      // block sums: lane l owns row l of block (row, d)
+      for (int p = warp; p < pairs; p += kWarps) {
+        const float* xj = x + nbr[p] * kBs;
+        float pr[kBs];
+        if (!msk[p]) {
+#pragma unroll
+          for (int q = 0; q < kBs; ++q) pr[q] = __fmul_rn(0.f, xj[q]);
+        } else if (STREAM) {
+          const int I = row0 + p / BD, J = nbr[p];
+#pragma unroll
+          for (int q = 0; q < kBs; ++q) pr[q] = __fmul_rn(stage_entry<TRANS>(pk, V, I, J, lane, q), xj[q]);
+        } else {
+          const float* blk = blocks + static_cast<size_t>(p) * kBs * kLd;
+#pragma unroll
+          for (int q = 0; q < kBs; ++q) pr[q] = __fmul_rn(blk[q * kLd + lane], xj[q]);
+        }
+        sums[p * kBs + lane] = tree_sum(pr);
+      }
+      __syncthreads();
+      // a warp per block row (strided where a CTA owns more than 8): b
+      // plus the block sums in block-list order
+      int changed = 0;
+      for (int w = warp; w < rows; w += kWarps) {
+        const int r = (row0 + w) * kBs + lane;
+        float acc = b[w * kBs + lane];
+        for (int d = 0; d < BD; ++d) acc = __fadd_rn(acc, sums[(w * BD + d) * kBs + lane]);
         acc = latch(acc);
         const float prev = sweeps == 0 ? inf() : x[r];
-        changed |= (acc != prev);
-        y[r] = acc;
+        changed |= acc != prev;
+        const int nxt = (cur ^ 1) * Vp + r;
+        for (int c = 0; c < C; ++c) *cluster.map_shared_rank(xbuf + nxt, c) = acc;
       }
-      ++sweeps;
       changed = __syncthreads_or(changed);
-      float* t = x;
-      x = y;
-      y = t;
-      if (!changed || sweeps >= cap) break;
+      if (threadIdx.x < C)
+        *cluster.map_shared_rank(flags + (sweeps & 1) * kMaxCluster + rank, threadIdx.x) = changed;
+      cluster.sync();
+      int any = 0;
+      for (int c = 0; c < C; ++c) any |= flags[(sweeps & 1) * kMaxCluster + c];
+      ++sweeps;
+      cur ^= 1;
+      if (!any || sweeps >= cap) break;
     }
 
-    for (int i = threadIdx.x; i < Vp; i += blockDim.x) {
-      float v = x[i];
+    const float* x = xbuf + cur * Vp;
+    for (int i = threadIdx.x; i < rows * kBs; i += kThreads) {
+      const int r = row0 * kBs + i;
+      float v = x[r];
       if (clamp) v = (v != v) ? v : fmaxf(v, 0.f);
       b[i] = v;
-      if (i < V) out[vo + i] = v;
+      if (r < V) out[vo + r] = v;
     }
-    if (threadIdx.x == 0) sweeps_out[member * K + k] = sweeps;
+    if (rank == 0 && threadIdx.x == 0) sweeps_out[member * K + k] = sweeps;
+    // no CTA resets its buffers for the next stage while a peer still reads
+    cluster.sync();
+  }
+}
+
+template <int TRANS, int STREAM, int C>
+int launch(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
+           const float* base, const float* mult, float* out, int* sweeps, int B, int K,
+           int NB, int BD, int V, int R, int reverse, int clamp, cudaStream_t stream) {
+  auto kernel = bsr_chain_cluster<TRANS, STREAM, C>;
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats(NB, BD, R, STREAM);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B * C, kThreads, smem, stream>>>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, K,
+                                            NB, BD, V, R, reverse, clamp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TRANS, int STREAM>
+int launch_c(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
+             const float* base, const float* mult, float* out, int* sweeps, int B, int K,
+             int NB, int BD, int V, int C, int R, int reverse, int clamp, cudaStream_t stream) {
+  switch (C) {
+#define REPRO_BSR_CASE(c)                                                                   \
+  case c:                                                                                   \
+    return launch<TRANS, STREAM, c>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, \
+                                    NB, BD, V, R, reverse, clamp, stream);
+    REPRO_BSR_CASE(1)
+    REPRO_BSR_CASE(2)
+    REPRO_BSR_CASE(4)
+    REPRO_BSR_CASE(8)
+    REPRO_BSR_CASE(16)
+#undef REPRO_BSR_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -152,27 +289,50 @@ bsr_chain_kernel(const float* __restrict__ bvals, const long long* __restrict__ 
 
 extern "C" {
 
-// Shared memory one block needs for NB block rows of BD blocks each.
-int repro_bsr_chain_smem_bytes(int NB, int BD) {
-  return static_cast<int>(sizeof(float)) * (3 * NB * kBs + NB * BD);
+// Shared memory one CTA needs: NB block rows of BD blocks, R rows a CTA,
+// stream 0 (the CTA's blocks in shared memory) or 1 (read from global).
+int repro_bsr_chain_smem_bytes(int NB, int BD, int R, int stream) {
+  return static_cast<int>(sizeof(float)) * smem_floats(NB, BD, R, stream);
 }
 
-// bvals: (B, K, NB, BD, 32, 32) float32; blk_nbr: (NB, BD) int64;
-// base/mult/out: (B, K, V) float32 with (NB - 1) * 32 < V <= NB * 32;
-// sweeps: (B, K) int32.  flags: bit 0 reverse, bit 1 clamp.
-int repro_bsr_chain(const float* bvals, const long long* blk_nbr, const float* base,
-                    const float* mult, float* out, int* sweeps, int B, int K, int NB,
-                    int BD, int V, int flags, cudaStream_t stream) {
+// The number of 16-CTA clusters (R rows each, the given variant) the card
+// can hold at once; 0 where one does not fit.
+int repro_bsr_chain_max_clusters(int NB, int BD, int R, int stream, int* out) {
+  auto kernel = stream ? bsr_chain_cluster<0, 1, 16> : bsr_chain_cluster<0, 0, 16>;
+  const int smem = repro_bsr_chain_smem_bytes(NB, BD, R, stream);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
+}
+
+// phi_e: (B, K, V, V) float32; blk_nbr: (NB, BD) int64; blk_mask: (NB, BD)
+// bool; base/mult/out: (B, K, V) float32 with (NB - 1) * 32 < V <= NB * 32;
+// sweeps: (B, K) int32.  flags: bit 0 reverse, bit 1 clamp, bit 2 trans.
+// C CTAs a cluster (1, 2, 4, 8 or 16), R block rows each (R * C >= NB); stream
+// as the wrapper's bsr_chain_plan picks them.
+int repro_bsr_chain(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
+                    const float* base, const float* mult, float* out, int* sweeps, int B,
+                    int K, int NB, int BD, int V, int C, int R, int stream, int flags,
+                    cudaStream_t cuda_stream) {
   if (B == 0 || K == 0 || NB == 0) return 0;
-  const int smem = repro_bsr_chain_smem_bytes(NB, BD);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(bsr_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (C < 1 || C > kMaxCluster || R * C < NB) return static_cast<int>(cudaErrorInvalidValue);
+  const int reverse = flags & 1, clamp = (flags >> 1) & 1, trans = (flags >> 2) & 1;
+  if (trans) {
+    return stream ? launch_c<1, 1>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB,
+                                   BD, V, C, R, reverse, clamp, cuda_stream)
+                  : launch_c<1, 0>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB,
+                                   BD, V, C, R, reverse, clamp, cuda_stream);
   }
-  const int warps = NB < kMaxWarps ? NB : kMaxWarps;
-  bsr_chain_kernel<<<B, warps * 32, smem, stream>>>(bvals, blk_nbr, base, mult, out, sweeps,
-                                                    K, NB, BD, V, flags & 1, (flags >> 1) & 1);
-  return static_cast<int>(cudaGetLastError());
+  return stream ? launch_c<0, 1>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB, BD,
+                                 V, C, R, reverse, clamp, cuda_stream)
+                : launch_c<0, 0>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB, BD,
+                                 V, C, R, reverse, clamp, cuda_stream);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -53,6 +53,15 @@
 // reads of trans=1 on distinct banks), the right-hand side, the iterate
 // and 2 x 32 floats for the gathered partials, which caps V at 239.
 //
+// Design, V > 239 (the dense route at metro sizes: V = 300, 600 and 1000
+// in benchmarks/gp_scaling.py): the factor no longer fits one block's
+// shared memory, so it stays in global memory (L2 holds a stage: 0.36 MB at
+// V = 300, 4 MB at V = 1000) and a 256-thread block per chain runs both
+// sweeps of each stage by strips of 32 rows (strip_sweep.cuh), with only
+// the right-hand side, the iterate and a 32 x 32 diagonal block in shared
+// memory.  A simple design: its sums run in another order than the plain
+// version's, within float32 rounding of it.
+//
 // Identity row permutation assumed (the unpivoted factors of batched_lu.cu).
 // IEEE division; the clamp is written so that NaN propagates as
 // jnp.maximum(nan, 0) does (fmaxf alone would return 0).
@@ -60,6 +69,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "strip_sweep.cuh"
 
 namespace {
 
@@ -310,6 +321,34 @@ chain_kernel_pipelined(const float* __restrict__ lu, const float* __restrict__ b
   }
 }
 
+__global__ void __launch_bounds__(repro::kStripThreads)
+chain_kernel_strips(const float* __restrict__ lu, const float* __restrict__ base,
+                    const float* __restrict__ mult, float* __restrict__ x_out,
+                    int K, int V, int trans, int reverse, int clamp) {
+  extern __shared__ float s[];
+  float* y = s;                       // (V,) right-hand side, solved in place
+  float* xv = y + V;                  // (V,) x_prev, then this stage's solution
+  float* tile = xv + V;               // (32, 33) a strip's diagonal block
+  const size_t chain = blockIdx.x;
+  const size_t vv = static_cast<size_t>(V) * V;
+
+  for (int i = threadIdx.x; i < V; i += blockDim.x) xv[i] = 0.f;
+  for (int step = 0; step < K; ++step) {
+    const int k = reverse ? K - 1 - step : step;
+    const size_t vo = (chain * K + k) * static_cast<size_t>(V);
+    __syncthreads();  // the previous stage is done with xv and y
+    for (int i = threadIdx.x; i < V; i += blockDim.x) y[i] = base[vo + i] + mult[vo + i] * xv[i];
+    __syncthreads();
+    repro::strip_two_sweep(lu + (chain * K + k) * vv, V, y, trans, tile);
+    for (int i = threadIdx.x; i < V; i += blockDim.x) {
+      float v = y[i];
+      if (clamp) v = (v != v) ? v : fmaxf(v, 0.f);
+      xv[i] = v;
+      x_out[vo + i] = v;
+    }
+  }
+}
+
 template <int NC>
 int launch(const float* lu, const float* base, const float* mult, float* x, int B, int K,
            int V, int trans, int reverse, int clamp, int smem, cudaStream_t stream) {
@@ -328,19 +367,35 @@ int launch(const float* lu, const float* base, const float* mult, float* x, int 
 
 extern "C" {
 
-// Shared memory one block needs at node count V.
-int repro_chain_solve_smem_bytes(int V) {
+// Shared memory one block needs at node count V in the given variant
+// (0 the factor in shared memory, 1 strips from global memory).
+int repro_chain_solve_smem_bytes(int V, int variant) {
+  if (variant == 1)
+    return static_cast<int>(sizeof(float)) * (2 * V + repro::kStrip * repro::kStripTileLd);
   const int ld = V | 1;
   return static_cast<int>(sizeof(float)) * (64 + V * ld + 2 * V);
 }
 
-// lu: (B, K, V, V), base/mult/x: (B, K, V), float32, contiguous.
+// lu: (B, K, V, V), base/mult/x: (B, K, V), float32, contiguous.  variant
+// 0 (the factor in shared memory, V <= 239) or 1 (strips), as the
+// wrapper's chain_solve_plan picks it.
 int repro_chain_solve(const float* lu, const float* base, const float* mult, float* x,
-                      int B, int K, int V, int trans, int reverse, int clamp,
+                      int B, int K, int V, int trans, int reverse, int clamp, int variant,
                       cudaStream_t stream) {
   if (B == 0 || K == 0 || V == 0) return 0;
-  if (V > 32 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = repro_chain_solve_smem_bytes(V);
+  if (variant == 1) {
+    const int smem = repro_chain_solve_smem_bytes(V, 1);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(chain_kernel_strips,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    chain_kernel_strips<<<B, repro::kStripThreads, smem, stream>>>(lu, base, mult, x, K, V,
+                                                                   trans, reverse, clamp);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (variant != 0 || V > 32 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = repro_chain_solve_smem_bytes(V, 0);
   switch ((V + 31) / 32) {
     case 1: return launch<1>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);
     case 2: return launch<2>(lu, base, mult, x, B, K, V, trans, reverse, clamp, smem, stream);

@@ -172,13 +172,10 @@ def sparse_chain_solve(phi_e: torch.Tensor, base: torch.Tensor, mult: torch.Tens
     every chain in one launch.
     """
     K, V = base.shape[-2:]
-    M = phi_e.reshape(-1, K, V, V)
-    if trans:
-        M = M.transpose(-1, -2)
-    bvals = _ss.block_values(M, blk_nbr, blk_mask)
-    x = _ss.chain_solve_bsr(bvals, blk_nbr, base.reshape(-1, K, V).contiguous(),
+    x = _ss.chain_solve_bsr(phi_e.reshape(-1, K, V, V).contiguous(), blk_nbr, blk_mask,
+                            base.reshape(-1, K, V).contiguous(),
                             mult.reshape(-1, K, V).contiguous(),
-                            reverse=reverse, clamp=clamp)
+                            trans=trans, reverse=reverse, clamp=clamp)
     return x.reshape(base.shape)
 
 

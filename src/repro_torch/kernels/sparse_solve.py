@@ -15,8 +15,9 @@ candidates make it diverge: values past 1e12 (or non-finite) latch at
   * :func:`block_values` gathers the nonzero 32 x 32 blocks of a stage
     matrix stack (the BSR layout of ``network.block_neighbors``);
   * :func:`chain_solve_bsr` walks every member's K stages by blocked sweeps:
-    ``csrc/bsr_chain.cu`` for CUDA tensors, :func:`chain_solve_bsr_plain`
-    for CPU tensors;
+    ``csrc/bsr_chain.cu`` (one thread-block cluster per member, reading the
+    blocks of ``phi_e`` itself) for CUDA tensors, :func:`block_values` and
+    :func:`chain_solve_bsr_plain` for CPU tensors;
   * :func:`tagged_nbr` is the blocked sets' category-3 fixed point on the
     padded out-neighbor lists: ``csrc/tagged_nbr.cu`` for CUDA tensors,
     :func:`tagged_nbr_plain` for CPU tensors.
@@ -141,61 +142,89 @@ def chain_solve_bsr_plain(bvals: torch.Tensor, blk_nbr: torch.Tensor,
     return (out, sweeps) if with_sweeps else out
 
 
+# bsr_chain's launch: one thread-block cluster per member (csrc/bsr_chain.cu)
+BSR_THREADS = 256
+BSR_MAX_CLUSTER = 16
+
+
+def bsr_chain_plan(NB: int, BD: int) -> dict:
+    """How :func:`chain_solve_bsr` launches for NB block rows of BD blocks:
+    one cluster of ``cluster`` CTAs per member, ``rows`` = ceil(NB / 16)
+    block rows a CTA (the cluster the power of two at or above
+    ceil(NB / rows)); ``variant`` "shared" (a CTA's rows x BD blocks in its
+    shared memory, 32 x 33 floats each, loaded once a stage) or "stream"
+    (read from global memory every sweep) where they do not fit."""
+    rows = -(-NB // BSR_MAX_CLUSTER)
+    cluster = 1 << max(0, (-(-NB // rows) - 1).bit_length())
+
+    def floats(stream):
+        return ((0 if stream else rows * BD * SPARSE_BLOCK * (SPARSE_BLOCK + 1))
+                + 2 * NB * SPARSE_BLOCK + rows * SPARSE_BLOCK + rows * BD * SPARSE_BLOCK
+                + 2 * BSR_MAX_CLUSTER + 2 * rows * BD)
+
+    stream = 4 * floats(False) > _build.SMEM_LIMIT
+    plan = {"variant": "stream" if stream else "shared", "cluster": cluster, "rows": rows,
+            "threads": BSR_THREADS, "smem_bytes": 4 * floats(stream)}
+    if plan["smem_bytes"] > _build.SMEM_LIMIT:
+        raise ValueError(f"chain_solve_bsr: NB={NB}, BD={BD} needs {plan['smem_bytes']} B "
+                         f"of shared memory per CTA, above {_build.SMEM_LIMIT} B")
+    return plan
+
+
 def _check_cuda(x: torch.Tensor, name: str, dtype, ndim: int) -> None:
     if x.dtype != dtype or x.ndim != ndim or not x.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {ndim}-dim {dtype} tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
 
 
-def chain_solve_bsr(bvals: torch.Tensor, blk_nbr: torch.Tensor,
-                    base: torch.Tensor, mult: torch.Tensor, *,
-                    reverse: bool = False, clamp: bool = False,
+def chain_solve_bsr(phi_e: torch.Tensor, blk_nbr: torch.Tensor,
+                    blk_mask: torch.Tensor, base: torch.Tensor, mult: torch.Tensor, *,
+                    trans: int = 0, reverse: bool = False, clamp: bool = False,
                     with_sweeps: bool = False):
-    """Blocked-sparse fused chain solve: bvals (B, K, NB, BD, bs, bs) from
-    :func:`block_values`, blk_nbr (NB, BD), base/mult (B, K, V) ->
-    x (B, K, V), walking k forward (or backward with ``reverse``):
+    """Blocked-sparse fused chain solve: phi_e (B, K, V, V), the block lists
+    blk_nbr/blk_mask (NB, BD), base/mult (B, K, V) -> x (B, K, V), walking
+    k forward (or backward with ``reverse``):
 
         x_k = (I - M_k)^{-1} (base_k + mult_k * x_prev),   x_prev(start) = 0,
+        M_k = Phi_k (trans=0) or Phi_k^T (trans=1),
 
     optionally clamped at 0.  CUDA tensors: one launch of
-    ``csrc/bsr_chain.cu``, one block per member.  CPU tensors: the plain
-    version.  ``with_sweeps=True`` also returns the (B, K) int32 sweep
+    ``csrc/bsr_chain.cu`` (:func:`bsr_chain_plan`), which reads the unmasked
+    32 x 32 blocks of ``phi_e`` itself.  CPU tensors: :func:`block_values`
+    and the plain version.  ``with_sweeps=True`` also returns the (B, K) int32 sweep
     counts.
     """
-    if bvals.device.type == "cpu":
-        return chain_solve_bsr_plain(bvals, blk_nbr, base, mult, reverse=reverse,
-                                     clamp=clamp, with_sweeps=with_sweeps)
-    _check_cuda(bvals, "chain_solve_bsr bvals", torch.float32, 6)
+    if phi_e.device.type == "cpu":
+        M = phi_e.transpose(-1, -2) if trans else phi_e
+        return chain_solve_bsr_plain(block_values(M, blk_nbr, blk_mask), blk_nbr, base,
+                                     mult, reverse=reverse, clamp=clamp,
+                                     with_sweeps=with_sweeps)
+    _check_cuda(phi_e, "chain_solve_bsr phi_e", torch.float32, 4)
     _check_cuda(blk_nbr, "chain_solve_bsr blk_nbr", torch.int64, 2)
+    _check_cuda(blk_mask, "chain_solve_bsr blk_mask", torch.bool, 2)
     _check_cuda(base, "chain_solve_bsr base", torch.float32, 3)
     _check_cuda(mult, "chain_solve_bsr mult", torch.float32, 3)
-    B, K, NB, BD, bs, bs2 = bvals.shape
-    V = base.shape[-1]
-    if (bs, bs2) != (SPARSE_BLOCK, SPARSE_BLOCK) or blk_nbr.shape != (NB, BD) \
-            or base.shape != (B, K, V) or mult.shape != (B, K, V) \
-            or not (NB - 1) * bs < V <= NB * bs:
+    B, K, V, V2 = phi_e.shape
+    NB, BD = blk_nbr.shape
+    if V != V2 or blk_mask.shape != (NB, BD) or base.shape != (B, K, V) \
+            or mult.shape != (B, K, V) or not (NB - 1) * SPARSE_BLOCK < V <= NB * SPARSE_BLOCK:
         raise ValueError(
-            f"chain_solve_bsr: shapes bvals {tuple(bvals.shape)}, blk_nbr "
-            f"{tuple(blk_nbr.shape)}, base {tuple(base.shape)}, mult "
-            f"{tuple(mult.shape)} do not agree")
-    if any(t.device != bvals.device for t in (blk_nbr, base, mult)):
+            f"chain_solve_bsr: shapes phi_e {tuple(phi_e.shape)}, blk_nbr "
+            f"{tuple(blk_nbr.shape)}, blk_mask {tuple(blk_mask.shape)}, base "
+            f"{tuple(base.shape)}, mult {tuple(mult.shape)} do not agree")
+    if any(t.device != phi_e.device for t in (blk_nbr, blk_mask, base, mult)):
         raise ValueError("chain_solve_bsr: all inputs must be on one device")
-    if bvals.data_ptr() % 16:
-        raise ValueError("chain_solve_bsr: bvals must be 16-byte aligned "
-                         "(the kernel reads it as float4)")
-    smem = 4 * (3 * NB * bs + NB * BD)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"chain_solve_bsr: NB={NB}, BD={BD} needs {smem} B of "
-                         f"shared memory, above {_build.SMEM_LIMIT} B")
+    plan = bsr_chain_plan(NB, BD)
     out = torch.empty_like(base)
     sweeps = torch.empty((B, K), dtype=torch.int32, device=base.device)
     fn = _build.function("bsr_chain", "repro_bsr_chain",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    with torch.cuda.device(bvals.device):
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    with torch.cuda.device(phi_e.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(bvals.data_ptr(), blk_nbr.data_ptr(), base.data_ptr(),
-                mult.data_ptr(), out.data_ptr(), sweeps.data_ptr(),
-                B, K, NB, BD, V, int(reverse) | (int(clamp) << 1), stream)
+        rc = fn(phi_e.data_ptr(), blk_nbr.data_ptr(), blk_mask.data_ptr(), base.data_ptr(),
+                mult.data_ptr(), out.data_ptr(), sweeps.data_ptr(), B, K, NB, BD, V,
+                plan["cluster"], plan["rows"], int(plan["variant"] == "stream"),
+                int(reverse) | (int(clamp) << 1) | (int(bool(trans)) << 2), stream)
     _build.check("bsr_chain", rc, "chain_solve_bsr")
     chain_solve_bsr.launches += 1
     return (out, sweeps) if with_sweeps else out

@@ -1,4 +1,4 @@
-"""Regenerate ``torch_ref_sweep.npz``, the JAX reference's Fig. 5 / Fig. 6 sweeps.
+"""Regenerate ``torch_ref_sweep.npz``, the JAX reference's evaluation sweeps.
 
 The PyTorch port's sweep tests (``tests/test_torch_sweep.py``) and the
 ``sweep`` phases of ``chip_smoke.py`` hold every member of the port's
@@ -24,8 +24,20 @@ Parts (each rewrites its own keys of the file and keeps the others):
   * ``fig5-small`` — the six ``SMALL_TABLE_II`` members of ``fig5``,
                      ``alpha=0.1, max_iters=250``: GP, SPOC, LCOF;
   * ``fig5-sw``    — the V=100 pair (sw-linear, sw-queue), same settings;
-  * ``fig6-serial``, ``fig5-small-serial`` — GP, SPOC and LCOF of those
-                     families through ``run_sweep_serial`` (one
+  * ``fig7``       — ``fig7-packetsize`` (Abilene at five input packet
+                     sizes, ``benchmarks/fig7_packetsize.py``), ``alpha=0.1,
+                     max_iters=300``: GP, SPOC, LCOF;
+  * ``ensemble``   — ``seed-ensemble`` (32 Abilene seeds at rate 2.0,
+                     ``benchmarks/fig5_scenarios.py``
+                     ``run_ensemble_speedup``), ``alpha=0.1,
+                     max_iters=250``: GP and GP with ``accel=True``;
+  * ``mixed``      — ``mixed-topology`` (the six small Table II networks,
+                     seeds 0 and 1, rate 1.5), ``alpha=0.1, max_iters=250``:
+                     GP, SPOC, LCOF;
+  * ``fig6-serial``, ``fig5-small-serial``, ``fig7-serial``,
+                     ``ensemble-serial``, ``mixed-serial`` — the solvers of
+                     those families (``ensemble``: GP and GP-accel; the
+                     others GP, SPOC and LCOF) through ``run_sweep_serial`` (one
                      ``gp.solve`` per member, masks on the unpadded
                      instance), under the solver names with ``-serial``
                      appended: the reference's own batched and serial runs
@@ -63,11 +75,19 @@ OUT = os.path.join(HERE, "torch_ref_sweep.npz")
 
 FIG6 = {"sweep": "fig6-congestion", "alpha": 0.1, "max_iters": 300}
 FIG5 = {"sweep": "fig5", "alpha": 0.1, "max_iters": 250}
+FIG7 = {"sweep": "fig7-packetsize", "alpha": 0.1, "max_iters": 300}
+ENSEMBLE = {"sweep": "seed-ensemble", "alpha": 0.1, "max_iters": 250}
+MIXED = {"sweep": "mixed-topology", "alpha": 0.1, "max_iters": 250}
+# Each figure's settings (the file's "meta") and the parts' key prefixes.
+FIGS = {"fig6": FIG6, "fig5": FIG5, "fig7": FIG7, "ensemble": ENSEMBLE, "mixed": MIXED}
 SOLVER = "dense"
 PARTS = ("fig6", "fig5-small", "fig5-sw",
          "fig6-sparse", "fig5-small-sparse", "fig5-sw-sparse",
          "fig6-serial", "fig5-small-serial",
-         "fig6-budget", "fig5-small-budget", "fig5-sw-budget")
+         "fig6-budget", "fig5-small-budget", "fig5-sw-budget",
+         "fig7", "fig7-sparse", "fig7-serial", "fig7-budget",
+         "ensemble", "ensemble-sparse", "ensemble-serial", "ensemble-budget",
+         "mixed", "mixed-sparse", "mixed-serial", "mixed-budget")
 # Telemetry columns kept per committed iteration (repro.obs.device).
 TEL_COLUMNS = ("alpha", "rung", "anderson", "phi_delta")
 
@@ -76,8 +96,8 @@ def _family(part: str):
     from repro.core import network, scenarios
 
     base = part.removesuffix("-sparse").removesuffix("-serial").removesuffix("-budget")
-    if base == "fig6":
-        fam = scenarios.expand(FIG6["sweep"])
+    if base in FIGS:
+        fam = scenarios.expand(FIGS[base]["sweep"])
     else:
         small = base == "fig5-small"
         fam = [sc for sc in scenarios.expand(FIG5["sweep"])
@@ -159,18 +179,20 @@ def reference_one_by_one(family, *, alpha, max_iters, chained, accel=None,
 def run_part(part: str) -> dict:
     from repro.core import baselines
 
-    fig = "fig6" if part.startswith("fig6") else "fig5"
+    fig = part.split("-")[0]
     sparse = part.endswith("-sparse")
     serial = part.endswith("-serial")
     budget = part.endswith("-budget")
-    params = FIG6 if fig == "fig6" else FIG5
+    params = FIGS[fig]
     family = _family(part)
     kw = {"alpha": params["alpha"], "max_iters": params["max_iters"]}
     solvers = {"GP": (None, None)}
-    if fig == "fig6" and not serial:
+    # Fig. 6's accelerated serial run is the "fig6" part's GP-accel-serial
+    if fig == "ensemble" or (fig == "fig6" and not serial):
         solvers["GP-accel"] = (None, True)
-    solvers["SPOC"] = (baselines.BASELINE_MASKS["SPOC"], None)
-    solvers["LCOF"] = (baselines.BASELINE_MASKS["LCOF"], None)
+    if fig != "ensemble":
+        solvers["SPOC"] = (baselines.BASELINE_MASKS["SPOC"], None)
+        solvers["LCOF"] = (baselines.BASELINE_MASKS["LCOF"], None)
     arrays = {}
     for name, (masks_fn, accel) in solvers.items():
         t0 = time.perf_counter()
@@ -222,7 +244,7 @@ def main(parts) -> None:
         keep = {k: v for k, v in old.items()
                 if k != "meta" and tuple(k.split("/")[:3]) not in mine}
         keep.update(new)
-        meta = {"fig6": FIG6, "fig5": FIG5, "solver": SOLVER,
+        meta = {**FIGS, "solver": SOLVER,
                 "jax_version": jax.__version__,
                 "tel_columns": list(TEL_COLUMNS)}
         keep["meta"] = np.array(json.dumps(meta))

@@ -38,13 +38,15 @@ from repro_torch.kernels import chain_propagate as cp  # noqa: E402
 from repro_torch.core import engine, marginals, traffic  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_solve as ss  # noqa: E402
-from _torch_cases import (case_id, check_dense_digest, dense_digest_cases,  # noqa: E402
+from _torch_cases import (bsr_digest_cases, case_id, check_bsr_digest,  # noqa: E402
+                          check_dense_digest, dense_digest_cases, dense_scale_cases,
                           random_bits, stage_mats, with_loops)
 
 METRO_GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                             "torch_ref_metro_sw1000.npz")
 DENSE_DIGESTS = os.path.join(os.path.dirname(__file__), "data",
                              "torch_card_dense_digests.json")
+BSR_DIGESTS = os.path.join(os.path.dirname(__file__), "data", "torch_card_bsr_digests.json")
 
 pytestmark = pytest.mark.gpu
 
@@ -129,13 +131,23 @@ def test_launch_plans_match_the_kernels(cuda):
     def c_int(name, symbol, *args):
         return _build.function(name, symbol, [ctypes.c_int] * len(args))(*args)
 
-    for V in (1, 16, 17, 100, 128, 129, 200, 240, 241):
+    for V in (1, 16, 17, 100, 128, 129, 200, 240, 241, 242, 300, 600, 1000, 1614):
         plan = bs.lu_factor_plan(V)
-        variant = 0 if plan["variant"] == "registers" else 1
+        variant = ("registers", "shared", "global").index(plan["variant"])
         assert c_int("batched_lu", "repro_lu_factor_smem_bytes", V, variant) == plan["smem_bytes"]
-    for V in (1, 32, 33, 100, 239):
-        assert (c_int("chain_solve", "repro_chain_solve_smem_bytes", V)
-                == bs.chain_solve_plan(V)["smem_bytes"])
+    for V in (1, 32, 33, 100, 239, 240, 300, 1000):
+        plan = bs.chain_solve_plan(V)
+        variant = ("shared", "strips").index(plan["variant"])
+        assert (c_int("chain_solve", "repro_chain_solve_smem_bytes", V, variant)
+                == plan["smem_bytes"])
+        plan = bs.lu_solve_plan(V)
+        variant = ("shared", "strips").index(plan["variant"])
+        assert c_int("lu_solve", "repro_lu_solve_smem_bytes", V, variant) == plan["smem_bytes"]
+    for V in (32, 100, 960, 961, 1000):
+        Vp, W = bset.padded_nodes(V)
+        plan = bset.tagged_plan(Vp, W)
+        variant = ("shared", "global").index(plan["variant"])
+        assert c_int("tagged", "repro_tagged_smem_bytes", Vp, W, variant) == plan["smem_bytes"]
     fn = _build.function("batched_lu", "repro_lu_factor",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     assert fn(None, None, None, 0, 129, 0, None) != 0
@@ -178,7 +190,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         bs.lu_factor(m.transpose(1, 2))
     with pytest.raises(ValueError, match="shared memory"):
-        bs.lu_factor(torch.eye(250, device=cuda)[None].contiguous())
+        bs.lu_factor(torch.eye(1615, device=cuda)[None].contiguous())
     lu = m.reshape(1, 2, 8, 8)
     with pytest.raises(ValueError):
         bs.chain_solve(lu, torch.zeros((1, 2, 7), device=cuda),
@@ -186,6 +198,76 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         bset.tagged(torch.zeros((1, 32, 1), device=cuda),
                     torch.zeros((1, 32, 1), device=cuda))
+
+
+@pytest.mark.parametrize("case", dense_scale_cases(), ids=case_id)
+def test_large_v_dense_variants_match_plain(cuda, case):
+    """Above the shared-memory limits: ``lu_factor`` by 32-column panels
+    and ``chain_solve`` by 32-row strips from global memory, at V = 300,
+    600 and 1000, within 1e-5 of their plain versions, the same ``ok``
+    flags (a singular and a tiny member) and the same non-finite chains (a
+    loopy one)."""
+    rep = check_dense_digest(case, None, cuda)
+    print(json.dumps(rep))
+    plan = (bs.lu_factor_plan if case["kernel"] == "lu_factor" else bs.chain_solve_plan)(case["V"])
+    assert plan["variant"] in ("global", "strips")
+    assert rep.get("ok_equal", True) and rep["finite_equal"]
+    assert rep["max_rel_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("V", [130, 200, 241])
+def test_lu_factor_global_variant_bit_equal_to_shared(cuda, V):
+    """The panel variant takes each entry's updates in the same order as
+    the shared-memory variant, so where both fit they write the same
+    bytes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    mats = stage_mats(np.random.default_rng(V), 5, V, loopy=(2,))
+    m = torch.from_numpy(mats).to(cuda)
+    lu, ok = bs.lu_factor(m, with_ok=True)
+    assert bs.lu_factor_plan(V)["variant"] == "shared"
+    fn = _build.function("batched_lu", "repro_lu_factor",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out, ok2 = torch.empty_like(m), torch.empty_like(ok)
+    assert fn(m.data_ptr(), out.data_ptr(), ok2.data_ptr(), 5, V, 2,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(lu.view(torch.int32), out.view(torch.int32))
+    assert torch.equal(ok, ok2) and ok.tolist() == [True, True, False, True, True]
+
+
+@pytest.mark.parametrize("V", [300, 1000])
+def test_large_v_lu_solve_and_tagged_match_plain(cuda, V):
+    """``lu_solve`` by strips (trans 0 and 1) within 1e-5 of its plain
+    version, a singular member's inf/nan kept in it; the tagged sweep
+    (from global memory at V=1000) bit-equal to its plain version and to
+    the dense sweep."""
+    rng = np.random.default_rng(V + 5)
+    mats = stage_mats(rng, 4, V, loopy=(2,))
+    lu = bs.lu_factor_plain(torch.from_numpy(mats).to(cuda)).contiguous()
+    rhs = torch.from_numpy(rng.uniform(-1.0, 2.0, (4, V)).astype(np.float32)).to(cuda)
+    ok = bs.factor_ok(lu)
+    assert bs.lu_solve_plan(V)["variant"] == "strips"
+    for trans in (0, 1):
+        got = bs.lu_solve(lu, rhs, trans=trans)
+        want = bs.lu_solve_plain(lu, rhs, trans=trans)
+        assert _rel(got[ok], want[ok]) <= 1e-5
+        assert not torch.isfinite(got[2]).all()
+    route, improper = random_bits(rng, 4, V, 3.0 / V)
+    Vp, W = bset.padded_nodes(V)
+
+    def packed(x):
+        bits = bset.pack_bits(torch.from_numpy(x).to(cuda))
+        return torch.cat([bits, bits.new_zeros((4, Vp - V, W))], dim=1).contiguous()
+
+    r, i = packed(route), packed(improper)
+    got = bset.tagged(r, i)
+    assert torch.equal(got, bset.tagged_plain(r, i))
+    dense = bset.tagged_scan_dense(torch.from_numpy(route), torch.from_numpy(improper))
+    assert torch.equal(bset.unpack_bits(got, V).cpu(), dense)
+    assert dense.any()
 
 
 def test_solve_on_card_matches_cpu(cuda):
@@ -224,7 +306,8 @@ def _check_bsr(inst, phi_e, base, mult, trans, **kw):
     M = M.transpose(-1, -2) if trans else M
     bvals = ss.block_values(M, inst.blk_nbr, inst.blk_mask).contiguous()
     b2, m2 = base.reshape(-1, K, V).contiguous(), mult.reshape(-1, K, V).contiguous()
-    got, sw = ss.chain_solve_bsr(bvals, inst.blk_nbr, b2, m2, with_sweeps=True, **kw)
+    got, sw = ss.chain_solve_bsr(phi_e.reshape(-1, K, V, V).contiguous(), inst.blk_nbr,
+                                 inst.blk_mask, b2, m2, trans=trans, with_sweeps=True, **kw)
     want, sw_want = ss.chain_solve_bsr_plain(bvals, inst.blk_nbr, b2, m2,
                                              with_sweeps=True, **kw)
     torch.cuda.synchronize()
@@ -252,6 +335,67 @@ def test_bsr_chain_kernel_matches_plain(cuda):
         A = inst.A
         assert (sw[A] == inst.V + 2).any(), label
         assert not torch.isfinite(got[3 * A]).all(), label
+
+
+@pytest.mark.parametrize("case", bsr_digest_cases(), ids=lambda c: c["label"])
+def test_bsr_chain_bit_equal_to_card_digests(cuda, case):
+    """The cluster ``bsr_chain`` writes the iterates and sweep counts that
+    the earlier kernel wrote on the card (the digest file), and the plain
+    version's bytes, on every digest case: the metro-sw ladder shape, the
+    streamed metro-geant blocks, the loopy sw-queue ladder (cap and latch)
+    and every trans/reverse/clamp variant."""
+    with open(BSR_DIGESTS) as fh:
+        ref = {c["label"]: c for c in json.load(fh)["cases"]}[case["label"]]
+    rep = check_bsr_digest(case, ref, cuda)
+    print(json.dumps(rep))
+    assert rep["inputs_equal"], "the numpy inputs drifted"
+    assert rep["outputs_equal"], f"{rep['case']}: {rep['differ']} differ"
+    assert rep["plain_equal"], rep
+    assert rep["sweeps_total"] == ref["sweeps_total"]
+
+
+@pytest.mark.parametrize("NB,BD", [(132, 3), (200, 9)])
+def test_bsr_chain_more_block_rows_than_warps(cuda, NB, BD):
+    """Above NB = 128 a CTA owns more block rows than it has warps (9 at
+    V=4200; 13 at V=6400, whose blocks are streamed): every row is summed,
+    bit-equal to the plain version, in both orientations.  Seeded strategies
+    on a banded block list (row I: blocks I, I+1, ..., I+BD-1 mod NB, one
+    slot masked in every fifth row), nonzero only from a lower to a higher
+    of 8 levels, so a stage settles within 9 sweeps."""
+    rng = np.random.default_rng(4100 + NB)
+    B, K, V = 2, 2, NB * 32 - 24
+    nbr = (np.arange(NB)[:, None] + np.arange(BD)[None, :]) % NB
+    mask = np.ones((NB, BD), dtype=bool)
+    mask[::5, BD - 1] = False
+    level = rng.integers(0, 8, (B, K, V))
+    phi = torch.zeros((B, K, V, V), device=cuda)
+    for b in range(B):
+        for k in range(K):
+            r = rng.integers(0, V, 12 * V)
+            c = (nbr[r // 32, rng.integers(0, BD, r.size)] * 32 + rng.integers(0, 32, r.size))
+            keep = (c < V) & mask[r // 32, (c // 32 - r // 32) % NB] \
+                & (level[b, k, np.minimum(c, V - 1)] > level[b, k, r])
+            val = rng.uniform(0.01, 0.08, r.size)[keep].astype(np.float32)
+            phi[b, k].index_put_((torch.from_numpy(r[keep]).to(cuda),
+                                  torch.from_numpy(c[keep]).to(cuda)),
+                                 torch.from_numpy(val).to(cuda))
+    base = torch.from_numpy(rng.uniform(-0.5, 2.0, (B, K, V)).astype(np.float32)).to(cuda)
+    mult = torch.from_numpy(rng.uniform(0.0, 1.0, (B, K, V)).astype(np.float32)).to(cuda)
+    blk_nbr = torch.from_numpy(nbr.astype(np.int64)).to(cuda)
+    blk_mask = torch.from_numpy(mask).to(cuda)
+    plan = ss.bsr_chain_plan(NB, BD)
+    assert plan["rows"] > 8
+    for trans in (0, 1):
+        M = phi.transpose(-1, -2) if trans else phi
+        want, want_sw = ss.chain_solve_bsr_plain(ss.block_values(M, blk_nbr, blk_mask),
+                                                 blk_nbr, base, mult, with_sweeps=True)
+        got, sw = ss.chain_solve_bsr(phi, blk_nbr, blk_mask, base, mult, trans=trans,
+                                     with_sweeps=True)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(want).all()) and int(want_sw.max()) <= 9, (trans, want_sw)
+        assert torch.equal(sw, want_sw), (trans, sw, want_sw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (trans, plan, float((got - want).abs().max()))
 
 
 def test_tagged_nbr_kernel_bit_equal_to_plain(cuda):
@@ -292,13 +436,15 @@ def test_metro_solve_on_card(cuda):
 
 
 def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    bv = torch.zeros((1, 1, 1, 1, 32, 32), device=cuda)
     nbr = torch.zeros((1, 1), dtype=torch.int64, device=cuda)
+    mask = torch.ones((1, 1), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
-        ss.chain_solve_bsr(bv, nbr.int(), torch.zeros((1, 1, 20), device=cuda),
+        ss.chain_solve_bsr(torch.zeros((1, 1, 20, 20), device=cuda), nbr.int(), mask,
+                           torch.zeros((1, 1, 20), device=cuda),
                            torch.zeros((1, 1, 20), device=cuda))
     with pytest.raises(ValueError):
-        ss.chain_solve_bsr(bv, nbr, torch.zeros((1, 1, 40), device=cuda),
+        ss.chain_solve_bsr(torch.zeros((1, 1, 40, 40), device=cuda), nbr, mask,
+                           torch.zeros((1, 1, 40), device=cuda),
                            torch.zeros((1, 1, 40), device=cuda))
     rv = torch.zeros((2, 5, 3), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
@@ -508,9 +654,9 @@ def test_propagate_step_kernel_matches_plain(cuda, V):
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    with pytest.raises(ValueError, match="shared memory"):
-        bs.lu_solve(torch.eye(241, device=cuda)[None].contiguous(),
-                    torch.zeros((1, 241), device=cuda))
+    # V=241 no longer fits shared memory: the strips variant solves it
+    rhs = torch.arange(241, dtype=torch.float32, device=cuda)[None]
+    assert torch.equal(bs.lu_solve(torch.eye(241, device=cuda)[None].contiguous(), rhs), rhs)
     with pytest.raises(ValueError):
         bs.lu_solve(torch.eye(8, device=cuda)[None].contiguous(),
                     torch.zeros((1, 7), device=cuda))

@@ -93,13 +93,17 @@ def test_lu_factor_plan_by_node_count(V, variant, tiles):
 @pytest.mark.parametrize("V,chunks", [(1, 1), (32, 1), (33, 2), (100, 4), (239, 8)])
 def test_chain_solve_plan_by_node_count(V, chunks):
     plan = bs.chain_solve_plan(V)
-    assert plan == {"threads": 128, "chunks": chunks,
+    assert plan == {"variant": "shared", "threads": 128, "chunks": chunks,
                     "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)}
 
 
-@pytest.mark.parametrize("fn,V", [(bs.lu_factor_plan, 242), (bs.lu_factor_plan, 300),
-                                  (bs.chain_solve_plan, 240), (bs.chain_solve_plan, 241)])
+@pytest.mark.parametrize("fn,V", [(bs.lu_factor_plan, 1615), (bs.lu_factor_plan, 2000),
+                                  (bs.chain_solve_plan, 28_529), (bs.chain_solve_plan, 40_000)])
 def test_plans_raise_where_the_shared_tile_does_not_fit(fn, V):
+    """Above the shared tile's limit (V = 241 and 239) the global-memory
+    variants take over (``tests/test_torch_dense_scale.py``); a plan raises
+    only where their shared memory, the LU's 32-column panel or the chain's
+    right-hand side and iterate, does not fit either."""
     with pytest.raises(ValueError, match="shared memory"):
         fn(V)
 

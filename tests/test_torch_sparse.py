@@ -209,7 +209,11 @@ def test_chain_solve_bsr_plain_matches_reference(name, point, variant):
     assert np.array_equal(bvals.numpy(), np.asarray(want_bvals))
 
     kw = dict(reverse=reverse, clamp=clamp)
-    got, sweeps = tss.chain_solve_bsr(bvals, blk_nbr, b2, m2, with_sweeps=True, **kw)
+    got, sweeps = tss.chain_solve_bsr_plain(bvals, blk_nbr, b2, m2, with_sweeps=True, **kw)
+    # the wrapper (phi_e and the block lists) gathers the same blocks
+    wrapped = tss.chain_solve_bsr(pe, blk_nbr, blk_mask, b2, m2, trans=trans,
+                                  with_sweeps=True, **kw)
+    assert torch.equal(wrapped[0], got) and torch.equal(wrapped[1], sweeps)
     if point == "mid10" and variant in ("marginals", "loopy"):
         # the Pallas interpreter runs member by member (about 50 ms each
         # here), so it checks one case of each flag set: the reverse clamped
@@ -264,7 +268,8 @@ def test_chain_solve_bsr_latch_and_cap():
     base = torch.ones((3, 1, V))
     mult = torch.zeros((3, 1, V))
     bvals = tss.block_values(torch.from_numpy(phi), blk_nbr, blk_mask)
-    x, sweeps = tss.chain_solve_bsr(bvals, blk_nbr, base, mult, with_sweeps=True)
+    x, sweeps = tss.chain_solve_bsr(torch.from_numpy(phi), blk_nbr, blk_mask, base, mult,
+                                    with_sweeps=True)
     assert torch.equal(x[0, 0], torch.tensor([2.0, 1.0, 1.0, 1.0, 1.0]))
     assert sweeps[0, 0] == 3                     # depth 1, +1 to settle, +1 first
     assert sweeps[1, 0] == V + 2 and torch.isfinite(x[1]).all()
