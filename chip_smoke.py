@@ -7,10 +7,12 @@ Runs from the root of a checkout and needs one card; it builds the port's
 CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
 ``build/repro_torch_kernels/``.  ``--prev DIR`` names a directory holding
 earlier versions of the redesigned kernels: ``bsr_chain.cu`` (as at
-commit f4ca93a) and/or ``batched_lu.cu``, ``chain_solve.cu`` and
-``two_sweep.cuh`` (as at commit 2e984dd), unpacked with ``git show``: those DIR holds
-are built beside the others and timed against the redesigned kernels in
-the ``kernel`` phase.  One JSON line per phase:
+commit f4ca93a), ``batched_lu.cu``, ``chain_solve.cu`` and
+``two_sweep.cuh`` (as at commit 2e984dd), ``flash_attention.cu`` and
+``ssd_chunk.cu`` (as at commit 14c1039), unpacked with ``git show``: those
+DIR holds are built beside the others and timed against the redesigned
+kernels in the ``kernel`` and ``model_kernels`` phases.  One JSON line per
+phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
   2. build   — the nine kernels, one ``nvcc`` each, all started together
@@ -107,6 +109,17 @@ the ``kernel`` phase.  One JSON line per phase:
      N=128, one B/C group), at one chunk, and through ``ops.ssd_chunk`` at
      a 32-token prefill it pads to 128 rows.  ``library_ms`` of the
      attention is ``scaled_dot_product_attention`` in float32 (timed only).
+     Both kernels form their products on the tensor cores in three-term
+     TF32 (float32-accurate; no PyTorch product uses TF32): each row also
+     gives the kernel's and the plain version's largest error against the
+     plain version evaluated in float64 (``max_rel_err_f64``,
+     ``plain_max_rel_err_f64``), and ``bound_tc_ms``, the bound at the
+     three-term rate (495 / 3 TFLOP/s; for ``ssd_chunk`` with C B^T once
+     per chunk and group) beside ``bound_ms`` at the CUDA cores' 67.  With
+     ``--prev``, the earlier kernels (commit 14c1039, float32 CUDA cores)
+     on the same inputs: their float64 error (``prev_max_rel_err_f64``)
+     and device ms timed in turns (``prev_ms``, ``abba_ms``, ``speedup``);
+     not bit-equal, since the tensor-core products round otherwise.
   11. edge    — the paper's DNN vertical split (``tests/data/torch_ref_edge.json``):
      the two-chain instance (internlm2-1.8b and mamba2-780m cut in 2
      segments, 2048 tokens per packet, on Abilene) built by the port, its
@@ -183,8 +196,10 @@ main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
 ``propagate_step``, which lie on no solver path; ``prev_ms`` and
-``prev_commit`` for the three redesigned kernels, the commit their earlier
-versions come from; ``prev_ms`` null for the others and without ``--prev``), the card's ``nvidia-smi`` line, and the
+``prev_commit`` for the five redesigned kernels, the commit their earlier
+versions come from; ``prev_ms`` null for the others and without
+``--prev``; ``bound_tc_ms`` for the two model kernels), the card's
+``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line.  Without CUDA, or
 without the rest of the repository, it exits non-zero at once.
@@ -221,6 +236,9 @@ PHI_TOL = 1e-6
 # Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
 PEAK_BYTES = 3.35e12        # HBM3, bytes/s
 PEAK_FP32 = 67e12           # float32 outside the tensor cores, FLOP/s
+# Dense TF32 on the tensor cores (495 TFLOP/s) over the three products of the
+# error-compensated split the model kernels use: float32-accurate products.
+PEAK_TF32X3 = 495e12 / 3
 REPS = 25
 
 
@@ -293,8 +311,8 @@ def timed(fn, symbol: str) -> dict:
             "ms_source": "events" if dev is None else "profiler"}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -326,16 +344,19 @@ def phase_device():
 
 # The sources of the redesigned kernels (``batched_lu`` and ``chain_solve``,
 # earlier versions as at commit 2e984dd; ``bsr_chain``, as at commit
-# f4ca93a), built from their earlier versions (``--prev DIR``, whichever of
-# them DIR holds) to be timed beside the new ones.
-PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain")
+# f4ca93a; ``flash_attention`` and ``ssd_chunk``, as at commit 14c1039),
+# built from their earlier versions (``--prev DIR``, whichever of them DIR
+# holds) to be timed beside the new ones.
+PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain", "flash_attention", "ssd_chunk")
+PREV_COMMIT_MODELS = "14c1039"
 PREV_BUILD = os.path.join(HERE, "build", "prev_kernels")
 
 
 def phase_build(prev_dir=None):
     """Build the nine kernels (one ``nvcc`` each, all at once); with
-    ``prev_dir``, also the earlier ``batched_lu.cu``, ``chain_solve.cu``
-    and ``bsr_chain.cu`` found there, alongside."""
+    ``prev_dir``, also the earlier ``batched_lu.cu``, ``chain_solve.cu``,
+    ``bsr_chain.cu``, ``flash_attention.cu`` and ``ssd_chunk.cu`` found
+    there, alongside."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -367,8 +388,11 @@ def phase_build(prev_dir=None):
 class PrevKernels:
     """The earlier kernels built from ``--prev DIR`` (their own C entry
     points, loaded with ctypes from ``build/prev_kernels``): the earlier
-    ``lu_factor`` and ``chain_solve`` (commit 2e984dd) and ``bsr_chain``
-    (commit f4ca93a, which reads the gathered blocks of ``block_values``).  ``has`` names those built."""
+    ``lu_factor`` and ``chain_solve`` (commit 2e984dd), ``bsr_chain``
+    (commit f4ca93a, which reads the gathered blocks of ``block_values``),
+    and ``flash_attention`` and ``ssd_chunk`` (commit 14c1039, on the
+    float32 CUDA cores; the same C entry points as the new ones).  ``has``
+    names those built."""
 
     def __init__(self, has):
         import ctypes
@@ -387,6 +411,11 @@ class PrevKernels:
             self._chain = fn("chain_solve", "repro_chain_solve", [vp] * 4 + [i] * 6 + [vp])
         if "bsr_chain" in self.has:
             self._bsr = fn("bsr_chain", "repro_bsr_chain", [vp] * 6 + [i] * 6 + [vp])
+        if "flash_attention" in self.has:
+            self._flash = fn("flash_attention", "repro_flash_attention",
+                             [vp] * 4 + [i] * 8 + [ctypes.c_float, vp])
+        if "ssd_chunk" in self.has:
+            self._ssd = fn("ssd_chunk", "repro_ssd_chunk", [vp] * 7 + [i] * 5 + [vp])
 
     @staticmethod
     def _stream():
@@ -428,12 +457,41 @@ class PrevKernels:
                 "earlier bsr_chain launch")
         return out, sweeps
 
+    def flash_attention(self, q, k, v, *, causal=True, window=None, seq_len=None):
+        """The earlier attention kernel; the wrapper's checks hold for it too."""
+        import torch
 
-def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit) -> dict:
+        out = torch.empty_like(q)
+        B, H, S, hd = q.shape
+        require(self._flash(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            B, H, k.shape[1], S, hd, S if seq_len is None else int(seq_len),
+                            int(causal), 0 if window is None else int(window), hd ** -0.5,
+                            self._stream()) == 0, "earlier flash_attention launch")
+        return out
+
+    def ssd_chunk(self, xh, dt, cum, Bc, Cc):
+        """The earlier SSD kernel: (y, state)."""
+        import torch
+
+        Bsz, nc, Q, H, P = xh.shape
+        G, N = Bc.shape[3], Bc.shape[4]
+        y = torch.empty_like(xh)
+        state = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=xh.device)
+        require(self._ssd(xh.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bc.data_ptr(),
+                          Cc.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz * nc, H, G, P, N,
+                          self._stream()) == 0, "earlier ssd_chunk launch")
+        return y, state
+
+
+def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit,
+                 same_bits: bool = True) -> dict:
     """The redesigned kernel against its earlier version (``old_fn``, None
-    without ``--prev``) on the same inputs: outputs bit-equal, and device ms
-    per launch timed in turns (old, new, new, old); ``prev_ms`` the mean of
-    the two old times."""
+    without ``--prev``) on the same inputs: outputs bit-equal (with
+    ``same_bits``), and device ms per launch timed in turns (old, new, new,
+    old); ``prev_ms`` the mean of the two old times.  The model kernels
+    pass ``same_bits=False``: their tensor-core products round otherwise
+    than the earlier kernels' float32 FMAs, so each is held to the plain
+    version (and to its float64 evaluation) instead."""
     import torch
 
     if not old_fn:
@@ -441,9 +499,10 @@ def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit) -> dict:
     old_out = old_fn()
     old_out, new_out = ((old_out, new_out) if isinstance(old_out, tuple)
                         else ((old_out,), (new_out,)))
-    require(all(torch.equal(o.view(torch.int32), n.view(torch.int32))
-                for o, n in zip(old_out, new_out)),
-            f"{what}: bit-equal to the earlier kernel")
+    if same_bits:
+        require(all(torch.equal(o.view(torch.int32), n.view(torch.int32))
+                    for o, n in zip(old_out, new_out)),
+                f"{what}: bit-equal to the earlier kernel")
 
     def dev_ms(fn):
         ms = kernel_ms(fn, symbol)
@@ -452,7 +511,7 @@ def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit) -> dict:
     abba = [dev_ms(old_fn), dev_ms(new_fn), dev_ms(new_fn), dev_ms(old_fn)]
     prev_ms = (abba[0] + abba[3]) / 2
     return {"prev_ms": prev_ms, "abba_ms": abba, "speedup": prev_ms / ((abba[1] + abba[2]) / 2),
-            "bit_equal_prev": True, "prev_commit": prev_commit}
+            "bit_equal_prev": True if same_bits else None, "prev_commit": prev_commit}
 
 
 def _tagged_rounds(route_bits, imp_bits):
@@ -1346,9 +1405,11 @@ def _max_rel(got, want) -> tuple[float, float]:
     return d, d / max(float(want.double().abs().max()), 1e-30)
 
 
-def _flash_row(label, B, H, KV, S, hd, causal=True, window=None, seed=0):
+def _flash_row(label, B, H, KV, S, hd, causal=True, window=None, seed=0, prev=None):
     """One ``flash_attention`` case at the (B, H, S, hd) layout the kernel
-    takes, S padded to a multiple of 128 as ``ops.flash_attention`` pads it."""
+    takes, S padded to a multiple of 128 as ``ops.flash_attention`` pads it;
+    with ``prev``, the earlier kernel on the same inputs (its error against
+    the float64 plain version beside the new one's, timed in turns)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1363,6 +1424,14 @@ def _flash_row(label, B, H, KV, S, hd, causal=True, window=None, seed=0):
     require(bool(torch.isfinite(got).all()), f"flash_attention {label}: finite")
     abs_e, rel_e = _max_rel(got, want)
     require(rel_e <= MODEL_TOL, f"flash_attention {label}: rel err {rel_e}")
+    exact = fa.flash_attention_plain(qp.double(), kp.double(), vp.double(), **kw)[:, :, :S]
+    errs = {"max_rel_err_f64": _max_rel(got, exact)[1],
+            "plain_max_rel_err_f64": _max_rel(want, exact)[1]}
+    old = prev and "flash_attention" in prev.has and functools.partial(
+        prev.flash_attention, qp, kp, vp, **kw)
+    if old:
+        errs["prev_max_rel_err_f64"] = _max_rel(old()[:, :, :S], exact)[1]
+    del exact
     # work this run needs: the (query, key) pairs in reach of the real rows
     qi = torch.arange(S, device="cuda")[:, None]
     ki = torch.arange(S, device="cuda")[None, :]
@@ -1372,25 +1441,34 @@ def _flash_row(label, B, H, KV, S, hd, causal=True, window=None, seed=0):
     if window is not None:
         reach &= ki > qi - window
     pairs = int(reach.sum())
-    b_ms, b_by = bound((2 * B * H * S * hd + 2 * B * KV * S * hd) * 4, 4 * B * H * pairs * hd)
+    nbytes, flops = (2 * B * H * S * hd + 2 * B * KV * S * hd) * 4, 4 * B * H * pairs * hd
+    b_ms, b_by = bound(nbytes, flops)
     if window is None:
         def lib():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     else:
         def lib():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=reach, enable_gqa=True)
+
+    def new():
+        return fa.flash_attention_fwd(qp, kp, vp, **kw)
+
     row = {"shape": [B, H, KV, S, hd], "padded_S": Sp, "causal": causal, "window": window,
-           "max_abs_err": abs_e, "max_rel_err": rel_e,
-           **timed(lambda: fa.flash_attention_fwd(qp, kp, vp, **kw), "flash_kernel"),
+           "max_abs_err": abs_e, "max_rel_err": rel_e, **errs,
+           **timed(new, "flash_kernel"),
            "plain_ms": time_ms(lambda: fa.flash_attention_plain(qp, kp, vp, **kw)),
-           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+           "bound_tc_ms": bound(nbytes, flops, PEAK_TF32X3)[0],
+           **_versus_prev(old, new, None, "flash_kernel", f"flash_attention {label}",
+                          PREV_COMMIT_MODELS, same_bits=False)}
     emit({"phase": "model_kernels", "name": "flash_attention", "case": label, **row})
     return row
 
 
-def _ssd_row(label, B, nc, H, P, N, G=1, seed=0):
+def _ssd_row(label, B, nc, H, P, N, G=1, seed=0, prev=None):
     """One ``ssd_chunk`` case on Mamba-2-like inputs: dt = softplus(normal),
-    A = -(1..H) (the initialiser's), B and C read by group."""
+    A = -(1..H) (the initialiser's), B and C read by group; with ``prev``,
+    the earlier kernel on the same inputs, as in :func:`_flash_row`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_chunk as sc
@@ -1410,15 +1488,35 @@ def _ssd_row(label, B, nc, H, P, N, G=1, seed=0):
             f"ssd_chunk {label}: finite")
     (ya, yr), (sa, sr) = _max_rel(y, yw), _max_rel(st, sw)
     require(max(yr, sr) <= MODEL_TOL, f"ssd_chunk {label}: rel err y {yr}, state {sr}")
+    ye, se = sc.ssd_chunk_plain(*(x.double() for x in args))
+
+    def f64(out):
+        return max(_max_rel(out[0], ye)[1], _max_rel(out[1], se)[1])
+
+    errs = {"max_rel_err_f64": f64((y, st)), "plain_max_rel_err_f64": f64((yw, sw))}
+    old = prev and "ssd_chunk" in prev.has and functools.partial(prev.ssd_chunk, *args)
+    if old:
+        errs["prev_max_rel_err_f64"] = f64(old())
+    del ye, se
     tri = Q * (Q + 1) // 2
     flops = B * nc * H * (tri * (2 * N + 2 * P + 3) + 2 * Q * N * P + 3 * Q)
+    # the least work: C B^T once per chunk and group
+    least = B * nc * (G * tri * 2 * N + H * (tri * (2 * P + 3) + 2 * Q * N * P + 3 * Q))
     nbytes = (xh.numel() + 2 * dt.numel() + 2 * Bc.numel() + y.numel() + st.numel()) * 4
     b_ms, b_by = bound(nbytes, flops)
+
+    def new():
+        return sc.ssd_chunk_fwd(*args)
+
     row = {"shape": [B, nc, Q, H, P, N, G], "max_abs_err": max(ya, sa),
-           "max_rel_err_y": yr, "max_rel_err_state": sr,
-           **timed(lambda: sc.ssd_chunk_fwd(*args), "ssd_chunk_kernel"),
+           "max_rel_err_y": yr, "max_rel_err_state": sr, **errs,
+           **timed(new, "ssd_chunk_kernel"),
            "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args)),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_tc_ms": bound(nbytes, least, PEAK_TF32X3)[0],
+           "bound_tc_by": bound(nbytes, least, PEAK_TF32X3)[1],
+           **_versus_prev(old, new, None, "ssd_chunk_kernel", f"ssd_chunk {label}",
+                          PREV_COMMIT_MODELS, same_bits=False)}
     emit({"phase": "model_kernels", "name": "ssd_chunk", "case": label, **row})
     return row
 
@@ -1449,19 +1547,20 @@ def _ssd_short_check(Q=32, B=4, H=48, P=64, N=128):
             f"ssd_chunk short prefill S={Q}: launches {launched}, rel err y {yr}, state {sr}")
 
 
-def phase_model_kernels():
-    """The edge path's two kernels vs their plain versions at its shapes."""
+def phase_model_kernels(prev=None):
+    """The edge path's two kernels vs their plain versions at its shapes
+    (with ``prev``, against their earlier versions too)."""
     from repro_torch.kernels import ops
 
     flash = [
-        _flash_row("internlm2-causal", 4, 16, 8, 2048, 128),
-        _flash_row("internlm2-window512", 4, 16, 8, 2048, 128, window=512, seed=1),
-        _flash_row("internlm2-S2000-padded", 4, 16, 8, 2000, 128, seed=2),
-        _flash_row("hd64-tinyllama-heads", 4, 32, 4, 2048, 64, seed=3),
+        _flash_row("internlm2-causal", 4, 16, 8, 2048, 128, prev=prev),
+        _flash_row("internlm2-window512", 4, 16, 8, 2048, 128, window=512, seed=1, prev=prev),
+        _flash_row("internlm2-S2000-padded", 4, 16, 8, 2000, 128, seed=2, prev=prev),
+        _flash_row("hd64-tinyllama-heads", 4, 32, 4, 2048, 64, seed=3, prev=prev),
     ]
     ssd = [
-        _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128),
-        _ssd_row("mamba2-S128", 4, 1, 48, 64, 128, seed=1),
+        _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128, prev=prev),
+        _ssd_row("mamba2-S128", 4, 1, 48, 64, 128, seed=1, prev=prev),
     ]
     _ssd_short_check()
     ops.reset_launch_counts()
@@ -2127,9 +2226,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", metavar="DIR",
-                    help="a directory holding earlier bsr_chain.cu (commit f4ca93a) "
-                         "and/or batched_lu.cu, chain_solve.cu and two_sweep.cuh "
-                         "(commit 2e984dd): "
+                    help="a directory holding earlier bsr_chain.cu (commit f4ca93a), "
+                         "batched_lu.cu, chain_solve.cu and two_sweep.cuh "
+                         "(commit 2e984dd), flash_attention.cu and ssd_chunk.cu "
+                         "(commit 14c1039): "
                          "build those it holds and time them beside the redesigned "
                          "kernels (prev_ms)")
     args = ap.parse_args(argv)
@@ -2177,7 +2277,7 @@ def main(argv=None) -> int:
         kernels.setdefault(name, []).extend(rows)
     with np.load(GOLDEN_DENSE) as z:
         phased("dense_scale", phase_dense_scale, {k: z[k] for k in z.files})
-    kernels.update(phased("model_kernels", phase_model_kernels))
+    kernels.update(phased("model_kernels", phase_model_kernels, prev))
     chains = phased("edge_gp", phase_edge_gp, ref_edge)
     model_launches = phased("edge_forwards", phase_edge_forwards, chains)
     for name, rows in phased("solve_kernels", phase_solve_kernels).items():
@@ -2234,6 +2334,7 @@ def main(argv=None) -> int:
                      "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"],
+                     "bound_tc_ms": main_row.get("bound_tc_ms"),
                      "prev_ms": main_row.get("prev_ms"),
                      "prev_commit": main_row.get("prev_commit"),
                      "shape": main_row["shape"], "cases": rows})

@@ -1,4 +1,5 @@
-// Blockwise online-softmax attention forward (causal / sliding window, GQA).
+// Blockwise online-softmax attention forward (causal / sliding window, GQA)
+// on the H100's tensor cores (three-term TF32).
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_fwd (the
 // Pallas _kernel).  For one (batch b, head h, query tile) it walks the key
@@ -19,61 +20,152 @@
 // seq_len, before the window) is skipped: in the reference it leaves m, l
 // and acc unchanged (alpha = exp(0) = 1, p = 0), so skipping is exact.
 //
-// What bounds it: 4 S^2 hd flops per (b, h) for the two products (halved
-// by the causal mask) against 4 (2 S hd) bytes per head of q, k, v and
-// out, so hundreds of flops per byte at S = 2048: bound by operations, at
-// the float32 rate of the CUDA cores (TF32 tensor cores are off for
-// parity).
+// What bounds it on the H100: 4 S^2 hd flops per (b, h) for the two
+// products (halved by the causal mask) against 4 (2 S hd) bytes per head of
+// q, k, v and out, hundreds of flops per byte at S = 2048: bound by
+// operations (internlm2-1.8b causal: 68.7 GFLOP, 0.42 ms at 165 TFLOP/s).
 //
-// Design: one thread block of 256 threads per (64-row query tile, h, b),
-// the heaviest causal tiles first.  Shared memory holds the scaled query
-// tile, one key-or-value tile (keys first, then the values of the same
-// tile, so 2 tiles rather than 3: 83 KB at hd = 128, which lets two blocks
-// share an SM) and the 64 x 64 probabilities.  Thread (ty, tx) of a 16 x 16
-// grid owns query rows 4 ty .. 4 ty + 3: it computes their scores against
-// keys tx + 16 j (j < 4) with float4 shared-memory reads (row stride hd + 4
-// floats: conflict-free), reduces the row max and sum over the 16 lanes of
-// its half-warp with shuffles, and accumulates output columns tx + 16 c
-// (c < hd / 16) in registers.  The KV head is read in place (no per-head
-// copy of k or v).  No tensor cores: float32 parity with the plain version.
+// Why three-term TF32 and not TF32: the port holds float32 parity with its
+// plain version (2e-5 of the largest |value|).  One TF32 product keeps 11
+// significant bits (about 3 digits); split every operand x into
+// big = tf32(x) (cvt.rna: round to nearest, ties away) and
+// small = tf32(x - big) and accumulate small*big + big*small + big*big in
+// float32: the dropped small*small term and small's own rounding are
+// 2^-22 |x y| each, float32-level (tests/test_torch_tf32x3.py emulates
+// both at these contraction lengths).  Three mma per product at TF32's
+// 495 TFLOP/s is 165 TFLOP/s of float32-accurate products, against the
+// CUDA cores' 67.
+//
+// Fragment layouts (PTX mma.m16n8k8, .tf32; lane = 4 grp + tig):
+//   A (16 x 8, row):  a0 (grp, tig)  a1 (grp + 8, tig)  a2 (grp, tig + 4)
+//                     a3 (grp + 8, tig + 4)
+//   B (8 x 8, col):   b0 (k = tig, n = grp)  b1 (k = tig + 4, n = grp)
+//   C/D (16 x 8):     c0 (grp, 2 tig)  c1 (grp, 2 tig + 1)  c2 (grp + 8, 2 tig)
+//                     c3 (grp + 8, 2 tig + 1)
+// P V contracts over keys, and a k8 step may order its 8 keys freely as
+// long as A and B agree: slot tig <-> key 2 tig, slot tig + 4 <-> key
+// 2 tig + 1.  Then the score accumulator of a key tile of 8 is already P's
+// A fragment, a = {c0, c2, c1, c3}: no shared-memory stage and no shuffles
+// between the two products.
+//
+// Design: one block of 4 warps per (64-row query tile, h, b), the heaviest
+// causal tiles first; each warp owns 16 query rows.  At hd = 64 its query
+// fragments are scaled, split and kept in registers for the whole block; at
+// hd = 128 they would spill, so the scaled rows wait in shared memory and
+// are split at each key tile.  Shared memory holds one key tile and one
+// value tile of 64 rows (row stride hd + 4 floats: every fragment read is
+// free of bank conflicts), each filled by cp.async (16 bytes) one phase
+// ahead: the values of tile j arrive while its scores are multiplied, the
+// keys of tile j + 1 while its P V is.  Each product issues its three
+// terms term by term over 8 independent accumulators (mma3_row).  Row max
+// and sum stay in registers (the 4 lanes of a row reduce with shuffles).
+// 101 KB of shared memory at hd = 128 lets two blocks share an SM.  The KV
+// head is read in place (no per-head copy of k or v).
+//
+// On the H100 a three-term product costs 3 mma, 2 shared-memory loads and
+// 8 instructions to split its B operand (each warp splits every key and
+// value again); scripts/mma_tf32_rate.py measures what such a stream of
+// mma.sync reaches, and the kernel runs at about half of it (PERF.md,
+// Findings).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kTile = 64;        // query and key tile (BQ = BK)
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;        // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKt = kTile / 8;   // key column tiles of 8 per tile
 constexpr float kNegInf = -1e30f;
-constexpr int kLp = kTile + 4;   // row stride of the probability tile
+
+// Where a warp keeps its scaled query rows: split once, in registers (hd / 2
+// registers a thread for each part), or at hd = 128, where those, the
+// output accumulators and the scores would take all 255 registers and
+// spill, as floats in shared memory, split again at each key tile.
+template <int HD>
+__host__ __device__ constexpr bool q_in_regs() { return HD <= 64; }
 
 template <int HD>
-constexpr int smem_floats() { return 2 * kTile * (HD + 4) + kTile * kLp; }
+constexpr int smem_floats() { return (q_in_regs<HD>() ? 2 : 3) * kTile * (HD + 4); }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// x = big + small, each a TF32 value (the tensor core reads the top 19
+// bits of an operand, so small needs no mask)
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_big(x);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));
 }
 
-// Copy a (64, HD) tile starting at row r0 of a (S, HD) matrix into shared
-// memory of row stride HD + 4, optionally scaled.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[o + n] += a b[n] for n < K in three terms, small*big, big*small, then
+// big*big, issued term by term: consecutive mma are independent, so the
+// tensor core's latency is hidden by the other n.
+template <int K, int T>
+__device__ __forceinline__ void mma3_row(float (&d)[T][4], int o, const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4], const float (&b)[K][2]) {
+  uint32_t bb[K][2], bs[K][2];
+#pragma unroll
+  for (int n = 0; n < K; ++n) {
+    split(b[n][0], bb[n][0], bs[n][0]);
+    split(b[n][1], bb[n][1], bs[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < K; ++n) mma_tf32(d[o + n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < K; ++n) mma_tf32(d[o + n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < K; ++n) mma_tf32(d[o + n], ab, bb[n][0], bb[n][1]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// Start copying a (64, HD) tile from row r0 of a (S, HD) matrix into shared
+// memory of row stride HD + 4.
 template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int r0, float scale) {
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0) {
   constexpr int kLd = HD + 4, kVec = HD / 4;
-  const float4* s4 = reinterpret_cast<const float4*>(src + static_cast<size_t>(r0) * HD);
+  const float* s = src + static_cast<size_t>(r0) * HD;
   for (int idx = threadIdx.x; idx < kTile * kVec; idx += kThreads) {
     const int r = idx / kVec, c = idx % kVec;
-    float4 x = s4[static_cast<size_t>(r) * kVec + c];
-    x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-    *reinterpret_cast<float4*>(dst + r * kLd + 4 * c) = x;
+    cp_async16(dst + r * kLd + 4 * c, s + r * HD + 4 * c);
   }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int HD>
@@ -81,11 +173,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out,
              int H, int KV, int S, int seq_len, int causal, int window, float scale) {
-  constexpr int kLd = HD + 4, kCols = HD / 16;
+  constexpr int kLd = HD + 4, kDk = HD / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // (64, HD + 4) scaled queries
-  float* KVs = Qs + kTile * kLd;         // (64, HD + 4) keys, then values
-  float* Ps = KVs + kTile * kLd;         // (64, 68) probabilities
+  float* Ks = smem;                      // (64, HD + 4) keys of tile j
+  float* Vs = Ks + kTile * kLd;          // (64, HD + 4) values of tile j
+  float* Qs = Vs + kTile * kLd;          // (64, HD + 4) scaled queries (hd = 128)
 
   const int nt = S / kTile;
   const int qt = nt - 1 - static_cast<int>(blockIdx.x);   // heavy tiles first
@@ -98,105 +190,165 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (static_cast<size_t>(b) * KV + kvh) * head;
   float* ob = out + (static_cast<size_t>(b) * H + h) * head;
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = q0 + 16 * warp + gq;    // this thread's rows r0 and r0 + 8
 
   // key tiles in reach of some row of this query tile
   int hi = min(nt - 1, (seq_len - 1) / kTile);
   if (causal) hi = min(hi, qt);
   int lo = 0;
   if (window > 0) lo = max(q0 - window + 1, 0) / kTile;
+  if (lo <= hi) load_tile<HD>(Ks, kb, lo * kTile);
 
-  float m[4], l[4], acc[4][kCols];
+  // scaled query rows r0, r0 + 8 as A fragments {(r0, 8 d + tq),
+  // (r0 + 8, ..), (r0, 8 d + tq + 4), (r0 + 8, ..)}
+  constexpr bool kRegs = q_in_regs<HD>();
+  uint32_t qB[kRegs ? kDk : 1][4], qS[kRegs ? kDk : 1][4];
+  const float* qrow = Qs + (16 * warp + gq) * kLd + tq;
+  if constexpr (kRegs) {
+    const float* p0 = qb + static_cast<size_t>(r0) * HD + tq;
+    const float* p1 = p0 + 8 * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    for (int d = 0; d < kDk; ++d) {
+      const float x[4] = {p0[8 * d] * scale, p1[8 * d] * scale, p0[8 * d + 4] * scale,
+                          p1[8 * d + 4] * scale};
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+      for (int e = 0; e < 4; ++e) split(x[e], qB[d][e], qS[d][e]);
+    }
+  } else {
+    const float* src = qb + static_cast<size_t>(q0) * HD;
+    for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads)
+      Qs[(idx / HD) * kLd + idx % HD] = src[idx] * scale;
+    __syncthreads();
   }
 
-  load_tile<HD>(Qs, qb, q0, scale);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kDk][4];
+#pragma unroll
+  for (int d = 0; d < kDk; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+
+#pragma unroll 1
   for (int jt = lo; jt <= hi; ++jt) {
     const int k0 = jt * kTile;
-    __syncthreads();                     // previous tile's values and P read
-    load_tile<HD>(KVs, kb, k0, 1.f);
+    load_tile<HD>(Vs, vb, k0);
+    cp_async_wait<1>();                  // keys of tile jt
     __syncthreads();
 
-    float s[4][4];
+    // s = q k^T: key column tiles of 8, keys k0 + 8 c + 2 tq (+1)
+    float s[kKt][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < kKt; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], c[4];
+      for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * kLd + d);
+    for (int d = 0; d < kDk; ++d) {
+      uint32_t aB[4], aS[4];
+      if constexpr (kRegs) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(a[i].x, c[j].x, t);
-          t = fmaf(a[i].y, c[j].y, t);
-          t = fmaf(a[i].z, c[j].z, t);
-          t = fmaf(a[i].w, c[j].w, t);
-          s[i][j] = t;
+        for (int e = 0; e < 4; ++e) {
+          aB[e] = qB[d][e];
+          aS[e] = qS[d][e];
         }
-    }
-
+      } else {
+        const float* p = qrow + 8 * d;
+        const float x[4] = {p[0], p[8 * kLd], p[4], p[8 * kLd + 4]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      bool ok[4];
+        for (int e = 0; e < 4; ++e) split(x[e], aB[e], aS[e]);
+      }
+      const float* kp = Ks + gq * kLd + 8 * d + tq;
+      float kf[kKt][2];
+#pragma unroll
+      for (int c = 0; c < kKt; ++c) {
+        kf[c][0] = kp[8 * c * kLd];
+        kf[c][1] = kp[8 * c * kLd + 4];
+      }
+      mma3_row<kKt>(s, 0, aB, aS, kf);
+    }
+    __syncthreads();                     // every warp has read the keys
+    if (jt < hi) load_tile<HD>(Ks, kb, k0 + kTile);
+
+    // online softmax of rows r0 (s[.][0..1]) and r0 + 8 (s[.][2..3]); a
+    // tile wholly in reach of the query tile needs no mask
+    const bool full = k0 + kTile <= seq_len && (!causal || k0 + kTile - 1 <= q0) &&
+                      (window <= 0 || k0 > q0 + kTile - 1 - window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = r0 + 8 * r;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < seq_len && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-        if (!ok[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      for (int c = 0; c < kKt; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * c + 2 * tq + e;
+          const bool ok = full || (kp < seq_len && (!causal || kp <= qp) &&
+                                   (window <= 0 || kp > qp - window));
+          float& x = s[c][2 * r + e];
+          x = ok ? x : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const float alpha = expf(m[r] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(4 * ty + i) * kLp + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
+      for (int c = 0; c < kKt; ++c)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * c + 2 * tq + e;
+          const bool ok = full || (kp < seq_len && (!causal || kp <= qp) &&
+                                   (window <= 0 || kp > qp - window));
+          float& x = s[c][2 * r + e];
+          x = ok ? expf(x - m_new) : 0.f;
+          rs += x;
+        }
+      l[r] = l[r] * alpha + quad_sum(rs);
+      m[r] = m_new;
+#pragma unroll
+      for (int d = 0; d < kDk; ++d) {
+        acc[d][2 * r] *= alpha;
+        acc[d][2 * r + 1] *= alpha;
+      }
     }
-    __syncthreads();                     // keys read, P written
-    load_tile<HD>(KVs, vb, k0, 1.f);
+
+    if (jt < hi)
+      cp_async_wait<1>();                // values of tile jt (the next keys may fly)
+    else
+      cp_async_wait<0>();
     __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float vv[kCols];
+    // acc += p v: key slots {2 tq, 2 tq + 1} of column tile c
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = KVs[kk * kLd + tx + 16 * c];
+    for (int c = 0; c < kKt; ++c) {
+      uint32_t pB[4], pS[4];
+      split(s[c][0], pB[0], pS[0]);
+      split(s[c][2], pB[1], pS[1]);
+      split(s[c][1], pB[2], pS[2]);
+      split(s[c][3], pB[3], pS[3]);
+      const float* vp = Vs + (8 * c + 2 * tq) * kLd + gq;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(4 * ty + i) * kLp + kk];
+      for (int d0 = 0; d0 < kDk; d0 += 8) {            // eight column tiles at a time
+        float vf[8][2];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int n = 0; n < 8; ++n) {
+          vf[n][0] = vp[8 * (d0 + n)];
+          vf[n][1] = vp[kLd + 8 * (d0 + n)];
+        }
+        mma3_row<8>(acc, d0, pB, pS, vf);
       }
     }
+    __syncthreads();                     // every warp has read the values
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float den = fmaxf(l[i], 1e-30f);
-    float* row = ob + static_cast<size_t>(q0 + 4 * ty + i) * HD;
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(l[r], 1e-30f);
+    float* row = ob + static_cast<size_t>(r0 + 8 * r) * HD + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) row[tx + 16 * c] = acc[i][c] / den;
+    for (int d = 0; d < kDk; ++d)
+      *reinterpret_cast<float2*>(row + 8 * d) =
+          make_float2(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
   }
 }
 

@@ -10,7 +10,10 @@ and keys at ``seq_len`` and beyond are masked.
     GQA repeat (``repro.kernels.ref.flash_attention``) plus ``seq_len``;
     the CPU route and the on-card oracle.
   * :func:`flash_attention_fwd` launches ``csrc/flash_attention.cu`` for
-    CUDA tensors and takes the plain version for CPU tensors.
+    CUDA tensors and takes the plain version for CPU tensors.  The kernel
+    forms both products on the tensor cores in three-term TF32 (each
+    float32 operand split into two TF32 parts; float32-level accuracy);
+    every PyTorch product stays in full float32.
 
 Masked scores take the reference's -1e30 sentinel (not -inf).  The kernel
 keeps the reference kernel's running max from -1e30, zeroes the masked
@@ -40,12 +43,14 @@ HEAD_DIMS = (64, 128)
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int | None = None,
                           seq_len: int | None = None) -> torch.Tensor:
-    """q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd) float32."""
+    """q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd) float32 (float64
+    for float64 inputs: the yardstick the kernel's error is measured by)."""
     B, H, S, hd = q.shape
     rep = H // k.shape[1]
-    k = k.repeat_interleave(rep, dim=1).float()
-    v = v.repeat_interleave(rep, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * hd ** -0.5, k)
+    real = torch.float64 if q.dtype == torch.float64 else torch.float32
+    k = k.repeat_interleave(rep, dim=1).to(real)
+    v = v.repeat_interleave(rep, dim=1).to(real)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(real) * hd ** -0.5, k)
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(S, device=q.device)[None, :]
     mask = kp < (S if seq_len is None else seq_len)
@@ -70,7 +75,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, H, S, hd), k/v (B, KV, S, hd) float32 -> (B, H, S, hd).
 
     CUDA tensors: one launch of ``csrc/flash_attention.cu``, one thread
-    block per (b, h, 64-row query tile); S a multiple of 64, hd 64 or 128.
+    block of 4 warps per (b, h, 64-row query tile); S a multiple of 64, hd
+    64 or 128.
     CPU tensors: :func:`flash_attention_plain`.
     """
     if q.device.type == "cpu":
@@ -89,7 +95,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: all inputs must be on one device")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned "
-                         "(the kernel reads them as float4)")
+                         "(the kernel copies them 16 bytes at a time)")
     n = S if seq_len is None else int(seq_len)
     if not 0 < n <= S:
         raise ValueError(f"flash_attention: seq_len {n} outside (0, {S}]")

@@ -20,7 +20,10 @@ never computes it).
   * :func:`ssd_chunk_plain` is the einsum form of ``repro.models.ssm``'s
     jnp path; the CPU route and the on-card oracle.
   * :func:`ssd_chunk_fwd` launches ``csrc/ssd_chunk.cu`` for CUDA tensors
-    and takes the plain version for CPU tensors.
+    and takes the plain version for CPU tensors.  The kernel forms its
+    products on the tensor cores in three-term TF32 (each float32 operand
+    split into two TF32 parts; float32-level accuracy); every PyTorch
+    product stays in full float32.
 
 ``ssd_chunk_fwd.launches`` counts kernel launches.
 """
@@ -48,10 +51,12 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
 
 def ssd_chunk_plain(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                     Bc: torch.Tensor, Cc: torch.Tensor):
-    """Plain intra-chunk core -> (y_intra (B,nc,Q,H,P), state_c (B,nc,H,P,N))."""
+    """Plain intra-chunk core -> (y_intra (B,nc,Q,H,P), state_c (B,nc,H,P,N)),
+    float32 (float64 for float64 inputs: the kernel's yardstick)."""
     H, Q = xh.shape[3], xh.shape[2]
-    xh, dt, cum = xh.float(), dt.float(), cum.float()
-    BH, CH = _heads(Bc.float(), H), _heads(Cc.float(), H)
+    real = torch.float64 if xh.dtype == torch.float64 else torch.float32
+    xh, dt, cum = xh.to(real), dt.to(real), cum.to(real)
+    BH, CH = _heads(Bc.to(real), H), _heads(Cc.to(real), H)
     scores = torch.einsum("bcqhn,bckhn->bchqk", CH, BH)
     ch = cum.permute(0, 1, 3, 2)                                   # (B,nc,H,Q)
     diff = ch[..., :, None] - ch[..., None, :]                     # (B,nc,H,Q,Q)
@@ -76,8 +81,9 @@ def ssd_chunk_fwd(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     """Intra-chunk core, shapes as the module docstring says.
 
     CUDA tensors: one launch of ``csrc/ssd_chunk.cu``, one thread block per
-    (batch * chunk, head); Q = 128 (``ops.ssd_chunk`` pads a shorter
-    chunk), P in (32, 64), N in (32, 64, 128).  CPU tensors:
+    (batch * chunk, B/C group, tile of heads), C B^T formed once a block;
+    Q = 128 (``ops.ssd_chunk`` pads a shorter chunk), P in (32, 64), N in
+    (32, 64, 128), xh, Bc and Cc 16-byte aligned.  CPU tensors:
     :func:`ssd_chunk_plain`.
     """
     if xh.device.type == "cpu":
@@ -98,6 +104,9 @@ def ssd_chunk_fwd(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                          f"{CHUNK}, P in {HEAD_DIMS}, N in {STATES}, H % G == 0)")
     if any(t.device != xh.device for t in (dt, cum, Bc, Cc)):
         raise ValueError("ssd_chunk: all inputs must be on one device")
+    if any(t.data_ptr() % 16 for t in (xh, Bc, Cc)):
+        raise ValueError("ssd_chunk: xh, Bc and Cc must be 16-byte aligned "
+                         "(the kernel copies them 16 bytes at a time)")
     y = torch.empty_like(xh)
     state = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=xh.device)
     fn = _build.function("ssd_chunk", "repro_ssd_chunk",

@@ -506,6 +506,58 @@ def test_ssd_chunk_kernel_matches_plain(cuda, nc, H, P, N, G):
     assert _max_rel(y, yw) <= 2e-5 and _max_rel(st, sw) <= 2e-5
 
 
+@pytest.mark.parametrize("S,H,KV,hd,window,seq_len", [
+    (64, 4, 2, 128, None, None),          # one query tile, one key tile
+    (128, 4, 2, 64, None, None),
+    (256, 4, 2, 128, 1, None),            # each row sees itself only
+    (256, 4, 4, 64, 63, None),            # a window under one tile
+    (1024, 4, 2, 128, None, 1000),        # seq_len 1000 padded to 1024
+    (512, 32, 4, 64, None, None),         # hd 64, 8 heads per KV head
+])
+def test_flash_attention_kernel_tilings(cuda, S, H, KV, hd, window, seq_len):
+    """The tensor-core kernel's tilings against the plain version, on the
+    kernel's own layout: single tiles, windows under a tile, padded rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd + (window or 0))
+    q = torch.randn((2, H, S, hd), generator=g, device=cuda)
+    k = torch.randn((2, KV, S, hd), generator=g, device=cuda)
+    v = torch.randn((2, KV, S, hd), generator=g, device=cuda)
+    n = S if seq_len is None else seq_len
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=window, seq_len=n)[:, :, :n]
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window, seq_len=n)[:, :, :n]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("B,nc,H,P,N,G,a_scale", [
+    (4, 11, 20, 64, 128, 1, 1.0),         # 132 blocks on the H100: head tiles 7, 7, 6
+    (4, 11, 20, 64, 128, 2, 1.0),         # two groups: tiles 4, 4, 2
+    (2, 3, 8, 32, 32, 4, 1.0),
+    (2, 1, 6, 32, 64, 2, 1.0),            # one chunk
+    (1, 2, 12, 64, 128, 4, 50.0),         # A = -(1..H) x 50: cum very negative
+])
+def test_ssd_chunk_kernel_tilings(cuda, B, nc, H, P, N, G, a_scale):
+    """The tensor-core kernel's head tiles and groups against the plain
+    version; outputs finite where the decay underflows."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device=cuda).manual_seed(B * nc * H + P + N + G)
+    Q = 128
+    xh = torch.randn((B, nc, Q, H, P), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((B, nc, Q, H), generator=g, device=cuda))
+    A = -a_scale * torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    cum = torch.cumsum(dt * A, dim=2)
+    Bc = torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    Cc = torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    y, st = sc.ssd_chunk_fwd(xh, dt, cum, Bc, Cc)
+    yw, sw = sc.ssd_chunk_plain(xh, dt, cum, Bc, Cc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert _max_rel(y, yw) <= 2e-5 and _max_rel(st, sw) <= 2e-5
+
+
 @pytest.mark.parametrize("Q,G", [(32, 1), (100, 2)])
 def test_ssd_chunk_short_chunk_padded_on_card(cuda, Q, G):
     """A prefill shorter than the kernel's 128 rows: ``ops.ssd_chunk`` pads
