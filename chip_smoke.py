@@ -8,10 +8,12 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
 ``build/repro_torch_kernels/``.  ``--prev DIR`` names a directory holding
 earlier versions of the redesigned kernels: ``bsr_chain.cu`` (as at
 commit f4ca93a), ``batched_lu.cu``, ``chain_solve.cu`` and
-``two_sweep.cuh`` (as at commit 2e984dd), ``flash_attention.cu`` and
-``ssd_chunk.cu`` (as at commit 14c1039), unpacked with ``git show``: those
-DIR holds are built beside the others and timed against the redesigned
-kernels in the ``kernel`` and ``model_kernels`` phases.  One JSON line per
+``strip_sweep.cuh`` (as at commit 8ee676d: the global-memory variants
+before their clusters), ``flash_attention.cu`` and ``ssd_chunk.cu`` (as at
+commit 14c1039), unpacked with ``git show``: those DIR holds are built
+beside the others and timed against the redesigned kernels in the
+``kernel`` (sw-queue and V = 300 / 600 / 1000) and ``model_kernels``
+phases.  One JSON line per
 phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
@@ -28,9 +30,10 @@ phase:
      another order and fuse multiply-adds), tagged bit-exact; ``lu_factor``'s
      own ``ok`` flags equal to ``factor_ok`` of its factors.  With
      ``--prev``, ``lu_factor`` and ``chain_solve`` also against their earlier
-     versions on the same inputs: output bytes equal, and ``prev_ms`` the
-     earlier kernel's device time per launch, timed in turns (earlier, new,
-     new, earlier; ``abba_ms``).  ``ms`` is
+     versions (commit 8ee676d; these variants are unchanged there) on the
+     same inputs: output bytes equal, and ``prev_ms`` the earlier kernel's
+     device time per launch, timed in turns (earlier, new, new, earlier;
+     ``abba_ms``).  ``ms`` is
      the kernel's device time per launch from ``torch.profiler`` (the
      per-call event time if the trace shows no device events);
      ``event_ms``, ``plain_ms`` and ``library_ms`` are per call: CUDA
@@ -38,9 +41,12 @@ phase:
      warm-up.
   3b. digests — ``lu_factor`` (factors and ``ok``) and ``chain_solve`` on
      every case of ``tests/data/torch_card_dense_digests.json`` (the card
-     digests of PR 14's kernels; the register and shared-memory variants of
-     ``lu_factor``, V from 1 to 240): output bytes equal to the digests,
-     within 1e-5 of the plain versions; and ``bsr_chain`` on every case of
+     digests of commit 2e984dd's kernels; the register and shared-memory
+     variants of ``lu_factor``, V from 1 to 240) and, with ``lu_solve`` by
+     strips, of ``tests/data/torch_card_dense_scale_digests.json`` (commit
+     8ee676d's global-memory variants at V = 300, 600, 1000, before their
+     clusters): output bytes equal to the digests, within 1e-5 of the plain
+     versions; and ``bsr_chain`` on every case of
      ``tests/data/torch_card_bsr_digests.json`` (the earlier kernel: the
      metro-sw ladder shape, metro-geant, the loopy sw-queue ladder, every
      trans/reverse/clamp variant): iterates and sweep counts bit-equal to
@@ -86,13 +92,17 @@ phase:
   9. metro_profile — ``torch.profiler`` over one 32-step chunk of the
      metro solve: device time per step, top device operations, idle share
      against the metro phase's unprofiled ms per step.
-  9b. kernel (dense, large V) — ``lu_factor`` (32-column panels),
-     ``chain_solve`` and ``lu_solve`` (32-row strips) and ``tagged`` (words
-     from global memory at V=1000) against their plain versions at V = 300,
-     600 and 1000, on the ladder candidates and stage systems of
+  9b. kernel (dense, large V) — ``lu_factor`` (32-column panels, a
+     cluster of CTAs a member), ``chain_solve`` (32-row strips, a cluster a
+     chain, a warp a strip), ``lu_solve`` (32-row strips) and ``tagged``
+     (words from global memory at V=1000) against their plain versions at
+     V = 300, 600 and 1000, on the ladder candidates and stage systems of
      ``without_sparse(metro_instance("sw", V))`` (within 1e-5, ``ok`` flags
      equal; ``torch.linalg.lu_factor`` / ``lu_solve`` beside them) and on
-     the seeded cases of ``_torch_cases.dense_scale_cases``.
+     the seeded cases of ``_torch_cases.dense_scale_cases``.  With
+     ``--prev``, ``lu_factor`` and ``chain_solve`` also against commit
+     8ee676d's single-block variants on the same ladder inputs: output bytes
+     equal, ``prev_ms``, ``abba_ms`` and ``speedup``.
   9c. dense_scale — ``gp.solve(without_sparse(metro_instance("sw", V)))``
      at V = 300 and 600 on the dense route, its launches counted, against
      the port's sparse route on the same instance (default and latch-off
@@ -225,6 +235,7 @@ GOLDEN_METRO = os.path.join(TESTS, "data", "torch_ref_metro_sw1000.npz")
 GOLDEN_EDGE = os.path.join(TESTS, "data", "torch_ref_edge.json")
 GOLDEN_SWEEP = os.path.join(TESTS, "data", "torch_ref_sweep.npz")
 DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_digests.json")
+SCALE_DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_scale_digests.json")
 BSR_DIGESTS = os.path.join(TESTS, "data", "torch_card_bsr_digests.json")
 GOLDEN_DENSE = os.path.join(TESTS, "data", "torch_ref_dense_sw300.npz")
 
@@ -343,12 +354,13 @@ def phase_device():
 
 
 # The sources of the redesigned kernels (``batched_lu`` and ``chain_solve``,
-# earlier versions as at commit 2e984dd; ``bsr_chain``, as at commit
+# earlier versions as at commit 8ee676d; ``bsr_chain``, as at commit
 # f4ca93a; ``flash_attention`` and ``ssd_chunk``, as at commit 14c1039),
 # built from their earlier versions (``--prev DIR``, whichever of them DIR
 # holds) to be timed beside the new ones.
 PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain", "flash_attention", "ssd_chunk")
 PREV_COMMIT_MODELS = "14c1039"
+PREV_COMMIT_DENSE = "8ee676d"
 PREV_BUILD = os.path.join(HERE, "build", "prev_kernels")
 
 
@@ -388,7 +400,8 @@ def phase_build(prev_dir=None):
 class PrevKernels:
     """The earlier kernels built from ``--prev DIR`` (their own C entry
     points, loaded with ctypes from ``build/prev_kernels``): the earlier
-    ``lu_factor`` and ``chain_solve`` (commit 2e984dd), ``bsr_chain``
+    ``lu_factor`` and ``chain_solve`` (commit 8ee676d, each in the variant
+    that commit's launch plan picks by V), ``bsr_chain``
     (commit f4ca93a, which reads the gathered blocks of ``block_values``),
     and ``flash_attention`` and ``ssd_chunk`` (commit 14c1039, on the
     float32 CUDA cores; the same C entry points as the new ones).  ``has``
@@ -406,9 +419,9 @@ class PrevKernels:
             return f
 
         if "batched_lu" in self.has:
-            self._lu = fn("batched_lu", "repro_lu_factor", [vp, vp, i, i, vp])
+            self._lu = fn("batched_lu", "repro_lu_factor", [vp] * 3 + [i] * 3 + [vp])
         if "chain_solve" in self.has:
-            self._chain = fn("chain_solve", "repro_chain_solve", [vp] * 4 + [i] * 6 + [vp])
+            self._chain = fn("chain_solve", "repro_chain_solve", [vp] * 4 + [i] * 7 + [vp])
         if "bsr_chain" in self.has:
             self._bsr = fn("bsr_chain", "repro_bsr_chain", [vp] * 6 + [i] * 6 + [vp])
         if "flash_attention" in self.has:
@@ -424,21 +437,29 @@ class PrevKernels:
         return torch.cuda.current_stream().cuda_stream
 
     def lu_factor(self, mats):
+        """The earlier factors (its ``ok`` flags are not compared here)."""
         import torch
+        from repro_torch.kernels import _build
 
         out = torch.empty_like(mats)
+        ok = torch.empty(mats.shape[0], dtype=torch.bool, device=mats.device)
         B, V, _ = mats.shape
-        require(self._lu(mats.data_ptr(), out.data_ptr(), B, V, self._stream()) == 0,
-                "earlier lu_factor launch")
+        # its plan: registers to V = 128, shared memory while the tile fits, panels
+        variant = 0 if V <= 128 else 1 if 4 * V * (V | 1) <= _build.SMEM_LIMIT else 2
+        require(self._lu(mats.data_ptr(), out.data_ptr(), ok.data_ptr(), B, V, variant,
+                         self._stream()) == 0, "earlier lu_factor launch")
         return out
 
     def chain_solve(self, lu, base, mult, *, trans=0, reverse=False, clamp=False):
         import torch
+        from repro_torch.kernels import _build
 
         out = torch.empty_like(base)
         B, K, V = base.shape
+        # its plan: the factor in shared memory where it fits, else strips
+        variant = 0 if 4 * (64 + V * (V | 1) + 2 * V) <= _build.SMEM_LIMIT else 1
         require(self._chain(lu.data_ptr(), base.data_ptr(), mult.data_ptr(), out.data_ptr(),
-                            B, K, V, int(trans), int(reverse), int(clamp),
+                            B, K, V, int(trans), int(reverse), int(clamp), variant,
                             self._stream()) == 0, "earlier chain_solve launch")
         return out
 
@@ -576,7 +597,7 @@ def phase_kernels(prev=None):
                **_versus_prev(prev and "batched_lu" in prev.has
                               and (lambda: prev.lu_factor(mats)),
                               lambda: bs.lu_factor(mats), got, "lu_kernel",
-                              f"lu_factor {label}", "2e984dd")}
+                              f"lu_factor {label}", PREV_COMMIT_DENSE)}
         emit({"phase": "kernel", "name": "lu_factor", "case": label, **row})
         lu_rows.append(row)
     results["lu_factor"] = lu_rows
@@ -616,7 +637,7 @@ def phase_kernels(prev=None):
                **_versus_prev(prev and "chain_solve" in prev.has
                               and (lambda: prev.chain_solve(lu, b2, m2, **kw)),
                               lambda: bs.chain_solve(lu, b2, m2, **kw), got,
-                              "chain_kernel", f"chain_solve {label}", "2e984dd")}
+                              "chain_kernel", f"chain_solve {label}", PREV_COMMIT_DENSE)}
         emit({"phase": "kernel", "name": "chain_solve", "case": label, **row})
         chain_rows.append(row)
     results["chain_solve"] = chain_rows
@@ -662,13 +683,14 @@ def phase_kernels(prev=None):
 
 def digest_case_inputs(pool):
     """The seeded numpy inputs of every dense digest and dense-scale case
-    (``_torch_cases.digest_inputs``: about 25 s of host work, 13 s of it
-    the 720-chain case), submitted to ``pool``'s processes so that they are
+    (``_torch_cases.digest_inputs``: about 60 s of host work, 13 s of it
+    the 720-chain case and 30 s the V = 2049 chains' factors), submitted to ``pool``'s processes so that they are
     made while ``nvcc`` builds the kernels: {``digest_key``: future}."""
-    from _torch_cases import dense_digest_cases, dense_scale_cases, digest_inputs, digest_key
+    from _torch_cases import (dense_digest_cases, dense_scale_digest_cases, digest_inputs,
+                              digest_key)
 
     out = {}
-    for c in dense_digest_cases() + dense_scale_cases():
+    for c in dense_digest_cases() + dense_scale_digest_cases():
         if digest_key(c) not in out:
             out[digest_key(c)] = pool.submit(digest_inputs, c)
     return out
@@ -677,27 +699,34 @@ def digest_case_inputs(pool):
 def phase_digests(inputs):
     """The redesigned kernels held to the card digests of the kernels they
     were redesigned from: the dense route's two (``tests/data/
-    torch_card_dense_digests.json``, the kernels of commit 2e984dd): every case's output
-    bytes equal, the kernel's ``ok`` equal to ``factor_ok``, within 1e-5 of
-    the plain version; and ``bsr_chain`` (``tests/data/
+    torch_card_dense_digests.json``, the kernels of commit 2e984dd, V <= 240;
+    ``tests/data/torch_card_dense_scale_digests.json``, commit 8ee676d's
+    global-memory variants at V = 300, 600, 1000, ``lu_factor`` at V = 1100
+    and 1614, ``chain_solve`` by strips at V = 2049, and ``lu_solve`` by
+    strips): every case's output bytes equal, the kernel's ``ok`` equal to
+    ``factor_ok``, within 1e-5 of the plain version; and ``bsr_chain`` (``tests/data/
     torch_card_bsr_digests.json``, the kernel of commit f4ca93a): the iterates and the
     sweep counts bit-equal to the digests and to the plain version.  On a
     mismatch the line gives the largest difference against the plain
     version."""
     from _torch_cases import (bsr_digest_cases, bsr_topology, case_id, check_bsr_digest,
-                              check_dense_digest, dense_digest_cases, digest_key)
+                              check_dense_digest, dense_digest_cases,
+                              dense_scale_digest_cases, digest_key)
     from repro_torch.kernels import batched_solve as bs
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_solve as ss
 
-    with open(DIGESTS) as fh:
-        refs = {case_id(c): c for c in json.load(fh)["cases"]}
+    refs = {}
+    for path in (DIGESTS, SCALE_DIGESTS):
+        with open(path) as fh:
+            refs.update({case_id(c): c for c in json.load(fh)["cases"]})
     failed = []
-    for case in dense_digest_cases():
+    for case in dense_digest_cases() + dense_scale_digest_cases():
         rep = check_dense_digest(case, refs[case_id(case)],
                                  inputs=inputs[digest_key(case)].result())
-        if case["kernel"] == "lu_factor":
-            rep["variant"] = bs.lu_factor_plan(case["V"])["variant"]
+        plan = {"lu_factor": bs.lu_factor_plan, "chain_solve": bs.chain_solve_plan,
+                "lu_solve": bs.lu_solve_plan}[case["kernel"]](case["V"])
+        rep["variant"] = plan["variant"]
         emit({"phase": "digests", **rep})
         if not (rep["inputs_equal"] and rep["outputs_equal"] and rep["finite_equal"]
                 and rep.get("ok_equal", True) and rep["max_rel_err"] <= 1e-5):
@@ -1144,14 +1173,16 @@ def _dense_iterate(V):
     return inst, phi, cands, marginals.marginals(inst, phi).pdt
 
 
-def phase_dense_scale_kernels(inputs):
+def phase_dense_scale_kernels(inputs, prev=None):
     """``lu_factor``, ``chain_solve``, ``lu_solve`` and ``tagged`` in their
     global-memory variants against their plain versions at V = 300, 600 and
     1000: on the stage systems and ladder candidates of
     ``without_sparse(metro_instance("sw", V))`` (within 1e-5, the ``ok``
     flags equal; ``torch.linalg.lu_factor`` and ``lu_solve`` beside them)
     and on the seeded cases of ``_torch_cases.dense_scale_cases`` (a
-    singular, a tiny and a loopy member)."""
+    singular, a tiny and a loopy member); with ``prev``, ``lu_factor`` and
+    ``chain_solve`` against commit 8ee676d's variants on the same ladder
+    inputs (bytes equal, timed in turns)."""
     import torch
     from _torch_cases import case_id, check_dense_digest, dense_scale_cases, digest_key
     from repro_torch.core import engine, traffic
@@ -1175,10 +1206,15 @@ def phase_dense_scale_kernels(inputs):
         row = {"case": f"metro-sw-V{V}-ladder", "shape": [B, V, V],
                "variant": bs.lu_factor_plan(V)["variant"], "members_not_ok": int((~ok).sum()),
                "max_abs_err": abs_e, "max_rel_err": rel_e,
-               **timed(lambda: bs.lu_factor(mats), "lu_kernel_global"),
+               "cluster": bs.lu_factor_plan(V)["cluster"],
+               **timed(lambda: bs.lu_factor(mats), "lu_kernel_cluster"),
                "plain_ms": time_ms(lambda: bs.lu_factor_plain(mats), reps=1),
                "library_ms": time_ms(lambda: torch.linalg.lu_factor(mats), reps=5),
-               "bound_ms": b_ms, "bound_by": b_by, "prev_ms": None, "prev_commit": None}
+               "bound_ms": b_ms, "bound_by": b_by,
+               **_versus_prev(prev and "batched_lu" in prev.has
+                              and (lambda: prev.lu_factor(mats)),
+                              lambda: bs.lu_factor(mats), lu, "lu_kernel",
+                              f"lu_factor V={V}", PREV_COMMIT_DENSE)}
         emit({"phase": "kernel", "name": "lu_factor", **row})
         rows["lu_factor"].append(row)
 
@@ -1200,11 +1236,15 @@ def phase_dense_scale_kernels(inputs):
         b_ms, b_by = bound(Bc * K * (V * V + 3 * V) * 4, Bc * K * (2 * V * V + 2 * V))
         row = {"case": f"metro-sw-V{V}-ladder", "shape": [Bc, K, V], "trans": 1,
                "variant": bs.chain_solve_plan(V)["variant"],
+               "cluster": bs.chain_solve_plan(V)["cluster"],
                "max_abs_err": abs_e, "max_rel_err": rel_e,
-               **timed(lambda: bs.chain_solve(lu3, b2, m2, trans=1), "chain_kernel_strips"),
+               **timed(lambda: bs.chain_solve(lu3, b2, m2, trans=1), "chain_kernel_cluster"),
                "plain_ms": time_ms(lambda: bs.chain_solve_plain(lu3, b2, m2, trans=1), reps=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               "prev_ms": None, "prev_commit": None}
+               **_versus_prev(prev and "chain_solve" in prev.has
+                              and (lambda: prev.chain_solve(lu3, b2, m2, trans=1)),
+                              lambda: bs.chain_solve(lu3, b2, m2, trans=1), got, "chain_kernel",
+                              f"chain_solve V={V}", PREV_COMMIT_DENSE)}
         emit({"phase": "kernel", "name": "chain_solve", **row})
         rows["chain_solve"].append(row)
 
@@ -2227,8 +2267,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", metavar="DIR",
                     help="a directory holding earlier bsr_chain.cu (commit f4ca93a), "
-                         "batched_lu.cu, chain_solve.cu and two_sweep.cuh "
-                         "(commit 2e984dd), flash_attention.cu and ssd_chunk.cu "
+                         "batched_lu.cu, chain_solve.cu and strip_sweep.cuh "
+                         "(commit 8ee676d), flash_attention.cu and ssd_chunk.cu "
                          "(commit 14c1039): "
                          "build those it holds and time them beside the redesigned "
                          "kernels (prev_ms)")
@@ -2241,7 +2281,7 @@ def main(argv=None) -> int:
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
                                                    GOLDEN_SWEEP, GOLDEN_DENSE, DIGESTS,
-                                                   BSR_DIGESTS))):
+                                                   SCALE_DIGESTS, BSR_DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -2273,7 +2313,7 @@ def main(argv=None) -> int:
     metro_launches, metro_ms_per_step = phased("metro", phase_metro, ref_metro)
     phased("metro_profile", phase_metro_profile, metro_ms_per_step)
     for name, rows in phased("dense_scale_kernels", phase_dense_scale_kernels,
-                             inputs).items():
+                             inputs, prev).items():
         kernels.setdefault(name, []).extend(rows)
     with np.load(GOLDEN_DENSE) as z:
         phased("dense_scale", phase_dense_scale, {k: z[k] for k in z.files})

@@ -23,7 +23,9 @@ whose matrices differ only by a transpose, so one factorization serves both.
 Each wrapper launches its CUDA kernel (``csrc/batched_lu.cu``,
 ``csrc/lu_solve.cu``, ``csrc/chain_solve.cu``) for a CUDA tensor, in the
 variant its launch plan picks by V (the factor in registers or shared
-memory where it fits, in global memory above V = 239-241), and runs the plain PyTorch
+memory where it fits, in global memory above V = 239-241, where
+``lu_factor`` and ``chain_solve`` run on a cluster of CTAs per member or
+chain), and runs the plain PyTorch
 version of the same arithmetic for a CPU tensor; the plain versions are
 also the on-card oracles of ``chip_smoke.py``.  ``<wrapper>.launches``
 counts kernel launches.
@@ -43,7 +45,7 @@ PIVOT_TINY = 1e-30
 
 # lu_factor holds a matrix in registers up to this V (16 x 16 threads of
 # at most 8 x 8 values each), in shared memory above it, and in global
-# memory (32-column panels in shared memory) where it does not fit there.
+# memory, a cluster of CTAs a member, where it does not fit there.
 REG_TILE_MAX_V = 128
 LU_THREADS = 256
 CHAIN_THREADS = 128
@@ -52,6 +54,14 @@ STRIP = 32
 STRIP_THREADS = 256
 PANEL_LD = STRIP + 4
 _TILE_FLOATS = STRIP * (STRIP + 1)     # a strip's diagonal block, odd stride
+# lu_factor's clusters: the trailing update's shared memory (128 staged rows
+# of L, sixteen owned panels' U12 blocks, the L11 block), which the panel
+# factor shares; every CTA owns at most 16 panels.  The variant takes V up
+# to LU_MAX_V, the range of the single-block panel design before it.
+_LU_UPDATE_FLOATS = 128 * PANEL_LD + 16 * STRIP * STRIP + _TILE_FLOATS
+LU_MAX_V = 1614
+# chain_solve's clusters: a warp per 32-row strip, at most 8 CTAs a cluster.
+CHAIN_CLUSTER_MAX_V = 8 * 8 * STRIP
 
 
 def lu_factor_plan(V: int) -> dict:
@@ -61,21 +71,30 @@ def lu_factor_plan(V: int) -> dict:
     thread and dimension; in shared memory the published row, column and
     multipliers, 4 x 128 floats, and the V x (V | 1) tile the factor leaves
     through), "shared" (the V x (V | 1) tile factored in shared memory,
-    V <= 241) or "global" (factored in place in global memory by 32-column
-    panels, each eliminated in shared memory at a row stride of 36 floats).
-    Raises where even the panel does not fit (V > 1614).
+    V <= 241) or "clusters" (factored in place in global memory by 32-column
+    panels, ``cluster`` CTAs a member, each owning every ``cluster``-th
+    panel: the fewest, from 2, that leave each CTA at most 16 panels, so 2
+    up to V = 1024 and 4 above; ``smem_bytes`` the trailing update's
+    buffers, the same at every V).  Raises above V = 1614, where the
+    single-block panel design before the clusters no longer fit its panel
+    in shared memory.
     """
     tile = 4 * V * (V | 1)
     if V <= REG_TILE_MAX_V:
         plan = {"variant": "registers", "threads": LU_THREADS, "tiles": -(-V // 16),
-                "smem_bytes": 4 * 4 * REG_TILE_MAX_V + tile}
+                "cluster": None, "smem_bytes": 4 * 4 * REG_TILE_MAX_V + tile}
     elif tile <= _build.SMEM_LIMIT:
-        plan = {"variant": "shared", "threads": LU_THREADS, "tiles": None,
+        plan = {"variant": "shared", "threads": LU_THREADS, "tiles": None, "cluster": None,
                 "smem_bytes": tile}
     else:
-        plan = {"variant": "global", "threads": LU_THREADS, "tiles": None,
-                "smem_bytes": 4 * V * PANEL_LD}
-    _check_smem(plan["smem_bytes"], V, "lu_factor", "its 32-column panel")
+        if V > LU_MAX_V:
+            raise ValueError(
+                f"lu_factor: V={V} is above {LU_MAX_V}, the largest V the dense factor "
+                f"takes (where a {V} x {PANEL_LD}-float panel stopped fitting one block's "
+                f"shared memory); take the sparse route at this size")
+        plan = {"variant": "clusters", "threads": LU_THREADS, "tiles": None,
+                "cluster": 2 if -(-V // STRIP) <= 2 * 16 else 4,
+                "smem_bytes": 4 * _LU_UPDATE_FLOATS}
     return plan
 
 
@@ -84,17 +103,27 @@ def chain_solve_plan(V: int) -> dict:
 
     ``variant`` "shared" (V <= 239): the factor, right-hand side, iterate
     and 2 x 32 gathered partials in shared memory, ``chunks`` = ceil(V /
-    32) values of the forward sweep's y per lane; "strips": the factor read
-    from global memory by strips of 32 rows by a 256-thread block, the
+    32) values of the forward sweep's y per lane; "clusters" (V <= 2048):
+    the factor read from global memory, ``cluster`` CTAs of 256 threads a
+    chain (the least power of two from 2 that gives every 32-row strip a
+    warp of its own), the solved strips (two V-float buffers), 32 row sums
+    and a 32 x 33 buffer a warp in shared memory; "strips": the factor read
+    from global memory by strips of 32 rows by one 256-thread block, the
     right-hand side, the iterate and a 32 x 33 diagonal block in shared
     memory.  Raises where even those do not fit."""
     smem = 4 * (64 + V * (V | 1) + 2 * V)
     if smem <= _build.SMEM_LIMIT:
         plan = {"variant": "shared", "threads": CHAIN_THREADS, "chunks": -(-V // 32),
-                "smem_bytes": smem}
+                "cluster": None, "smem_bytes": smem}
+    elif V <= CHAIN_CLUSTER_MAX_V:
+        c = 2
+        while 8 * c < -(-V // STRIP):
+            c *= 2
+        plan = {"variant": "clusters", "threads": STRIP_THREADS, "chunks": None, "cluster": c,
+                "smem_bytes": 4 * (2 * V + STRIP + 8 * _TILE_FLOATS)}
     else:
         plan = {"variant": "strips", "threads": STRIP_THREADS, "chunks": None,
-                "smem_bytes": 4 * (2 * V + _TILE_FLOATS)}
+                "cluster": None, "smem_bytes": 4 * (2 * V + _TILE_FLOATS)}
     _check_smem(plan["smem_bytes"], V, "chain_solve", "its right-hand side and iterate")
     return plan
 
@@ -167,7 +196,7 @@ def lu_factor(mats: torch.Tensor, *, with_ok: bool = False):
     B, V, V2 = mats.shape
     if V != V2:
         raise ValueError(f"lu_factor: matrices must be square, got {tuple(mats.shape)}")
-    variant = ("registers", "shared", "global").index(lu_factor_plan(V)["variant"])
+    variant = ("registers", "shared", "clusters").index(lu_factor_plan(V)["variant"])
     out = torch.empty_like(mats)
     ok = torch.empty(B, dtype=torch.bool, device=mats.device)
     fn = _build.function("batched_lu", "repro_lu_factor",
@@ -289,8 +318,8 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
     """Fused chain solve: lu (B, K, V, V), base/mult (B, K, V) -> (B, K, V).
 
     CUDA tensors: one launch of ``csrc/chain_solve.cu``, one block per
-    chain (the variant of :func:`chain_solve_plan`).  CPU tensors: the plain
-    version.
+    chain, or a cluster of CTAs per chain above V = 239 (the variant of
+    :func:`chain_solve_plan`).  CPU tensors: the plain version.
     Identity row permutation (the factors of :func:`lu_factor`).
     """
     if lu.device.type == "cpu":
@@ -306,7 +335,7 @@ def chain_solve(lu: torch.Tensor, base: torch.Tensor, mult: torch.Tensor,
             f"{tuple(base.shape)}, mult {tuple(mult.shape)} do not agree")
     if base.device != lu.device or mult.device != lu.device:
         raise ValueError("chain_solve: all inputs must be on one device")
-    variant = ("shared", "strips").index(chain_solve_plan(V)["variant"])
+    variant = ("shared", "strips", "clusters").index(chain_solve_plan(V)["variant"])
     out = torch.empty_like(base)
     fn = _build.function("chain_solve", "repro_chain_solve",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])

@@ -1,7 +1,8 @@
 // The two-sweep substitution on a packed unpivoted LU factor that stays in
 // global memory, run by a whole thread block; shared by chain_solve.cu and
 // lu_solve.cu for node counts whose factor does not fit one block's shared
-// memory (chain_solve above V = 239, lu_solve above V = 240).
+// memory (lu_solve above V = 240; chain_solve above V = 2048, its cluster
+// variant below that takes these operations in this order too).
 //
 // m is the (V, V) row-major factor (L strictly below the diagonal with an
 // implicit unit diagonal, U on and above it), y the right-hand side in

@@ -645,10 +645,36 @@ def dense_scale_cases():
     return cases
 
 
+def dense_scale_digest_cases():
+    """The cases of ``tests/data/torch_card_dense_scale_digests.json``: every
+    case of :func:`dense_scale_cases`; at each V in ``DENSE_SCALE_V``
+    ``lu_solve`` by strips on four members, member 2 loopy, trans 1 and 0
+    (one seed per V, so the two share their inputs); ``lu_factor`` at
+    V = 1100 and 1614 (four CTAs a cluster, up to the largest V it takes)
+    on three members, member 1 singular and member 2 tiny; and
+    ``chain_solve`` at V = 2049 (one block a chain by strips, the first V
+    above the clusters) on two chains of two stages, chain 1 loopy in its
+    last stage, in the four trans/reverse/clamp variants."""
+    cases = dense_scale_cases()
+    for V in DENSE_SCALE_V:
+        for trans in (1, 0):
+            cases.append({"kernel": "lu_solve", "V": V, "B": 4, "seed": 3500 + V,
+                          "loopy": [2], "trans": trans})
+    for V in (1100, 1614):
+        cases.append({"kernel": "lu_factor", "V": V, "B": 3, "seed": 3100 + V,
+                      "singular": [1], "tiny": [2]})
+    for trans, reverse, clamp in CHAIN_VARIANTS:
+        cases.append({"kernel": "chain_solve", "V": 2049, "B": 2, "K": 2, "seed": 3300 + 2049,
+                      "loopy": [1], "trans": trans, "reverse": reverse, "clamp": clamp})
+    return cases
+
+
 def case_id(case) -> str:
     """A short name of a digest case, for test ids and report lines."""
     if case["kernel"] == "lu_factor":
         return f"lu_factor-V{case['V']}-B{case['B']}"
+    if case["kernel"] == "lu_solve":
+        return f"lu_solve-V{case['V']}-B{case['B']}-t{case['trans']}"
     return (f"chain_solve-V{case['V']}-B{case['B']}-t{case['trans']}"
             f"{'r' if case['reverse'] else ''}{'c' if case['clamp'] else ''}")
 
@@ -696,6 +722,10 @@ def _digest_inputs(key):
         for b in case["tiny"]:
             mats[b] *= np.float32(1e-32)
         return {"mats": mats}
+    if case["kernel"] == "lu_solve":
+        mats = stage_mats(rng, case["B"], V, loopy=tuple(case["loopy"]))
+        rhs = rng.uniform(-1.0, 2.0, (case["B"], V)).astype(np.float32)
+        return {"lu": np_lu_factor(mats), "rhs": rhs}
     B, K = case["B"], case["K"]
     mats = stage_mats(rng, B * K, V, loopy=tuple(b * K + 1 for b in case["loopy"]))
     lu = np_lu_factor(mats).reshape(B, K, V, V)
@@ -719,7 +749,8 @@ def check_dense_digest(case, ref, device="cuda", inputs=None):
 
     Returns a report: ``inputs_equal`` (the numpy inputs' digests),
     ``outputs_equal`` (the kernel's output bytes against the card's
-    digests: the factors and flags, or the chain's iterates), ``ok_equal``
+    digests: the factors and flags, the chain's iterates or ``lu_solve``'s
+    solutions), ``ok_equal``
     (lu_factor: the kernel's flags against ``factor_ok`` of its factors),
     ``max_abs_diff`` and ``max_rel_err`` against the plain version on the
     same device (finite members; relative to max(|plain|, 1)), and the
@@ -738,6 +769,11 @@ def check_dense_digest(case, ref, device="cuda", inputs=None):
         outputs = {"lu": got.cpu().numpy(), "ok": ok.cpu().numpy().astype(np.uint8)}
         rep["ok_equal"] = bool(torch.equal(ok, bs.factor_ok(got)))
         fin = torch.isfinite(want).all(dim=-1).all(dim=-1)
+    elif case["kernel"] == "lu_solve":
+        got = bs.lu_solve(t["lu"], t["rhs"], trans=case["trans"])
+        want = bs.lu_solve_plain(t["lu"], t["rhs"], trans=case["trans"])
+        outputs = {"x": got.cpu().numpy()}
+        fin = torch.isfinite(want).all(dim=-1)
     else:
         kw = {k: case[k] for k in ("trans", "reverse", "clamp")}
         got = bs.chain_solve(t["lu"], t["base"], t["mult"], **kw)
@@ -745,7 +781,7 @@ def check_dense_digest(case, ref, device="cuda", inputs=None):
         outputs = {"x": got.cpu().numpy()}
         fin = torch.isfinite(want).all(dim=-1).all(dim=-1)
     rep["finite_equal"] = bool(torch.equal(
-        torch.isfinite(got).all(dim=-1).all(dim=-1), fin))
+        torch.isfinite(got).reshape(got.shape[0], -1).all(dim=-1), fin))
     d = (got[fin].double() - want[fin].double()).abs()
     rep["max_abs_diff"] = float(d.max()) if d.numel() else 0.0
     rep["max_rel_err"] = (float((d / want[fin].double().abs().clamp_min(1.0)).max())

@@ -1,20 +1,27 @@
-"""Regenerate ``torch_card_dense_digests.json``: digests of the dense
-route's two CUDA kernels' outputs on the card.
+"""Regenerate the card digests of the dense route's CUDA kernels' outputs.
 
-For every case of ``tests/_torch_cases.dense_digest_cases`` the file holds
-the sha256 of the numpy inputs and of the bytes that ``lu_factor`` (packed
-factors and ``factor_ok``'s flags) and ``chain_solve`` write on the card.
-The kernels of ``src/repro_torch/kernels/csrc`` are held to them bit for
-bit (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase ``digests``),
-so a redesign of either kernel must keep every float operation and its
-order.  The file records the sha256 of the kernel sources it was made
-with.  Run on the card, from the repository root (no JAX needed):
+``torch_card_dense_digests.json`` (default): for every case of
+``tests/_torch_cases.dense_digest_cases`` (V up to 240: the register and
+shared-memory variants) the sha256 of the numpy inputs and of the bytes
+that ``lu_factor`` (packed factors and ``factor_ok``'s flags) and
+``chain_solve`` write on the card.  ``torch_card_dense_scale_digests.json``
+(``--scale``): the same for every case of
+``_torch_cases.dense_scale_digest_cases`` (V = 300, 600 and 1000: the
+global-memory variants of ``lu_factor`` and ``chain_solve``, and
+``lu_solve`` by strips; ``lu_factor`` at V = 1100 and 1614 and
+``chain_solve`` at V = 2049).  The kernels of ``src/repro_torch/kernels/csrc``
+are held to them bit for bit (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase ``digests``), so a redesign of any of them must keep
+every float operation and its order.  Each file records the sha256 of the
+kernel sources it was made with.  Run on the card, from the repository root
+(no JAX needed):
 
-    PYTHONPATH=src:tests python tests/data/make_torch_card_digests.py [OUT]
+    PYTHONPATH=src:tests python tests/data/make_torch_card_digests.py [--scale] [OUT]
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -23,7 +30,9 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "torch_card_dense_digests.json")
+OUT_SCALE = os.path.join(HERE, "torch_card_dense_scale_digests.json")
 SOURCES = ("batched_lu.cu", "chain_solve.cu", "two_sweep.cuh")
+SOURCES_SCALE = ("batched_lu.cu", "chain_solve.cu", "lu_solve.cu", "strip_sweep.cuh")
 
 
 def card_outputs(case, inputs) -> dict:
@@ -39,15 +48,19 @@ def card_outputs(case, inputs) -> dict:
         torch.cuda.synchronize()
         return {"lu": lu.cpu().numpy(), "ok": ok.cpu().numpy().astype(np.uint8)}
     t = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
-    x = bs.chain_solve(t["lu"], t["base"], t["mult"], trans=case["trans"],
-                       reverse=case["reverse"], clamp=case["clamp"])
+    if case["kernel"] == "lu_solve":
+        x = bs.lu_solve(t["lu"], t["rhs"], trans=case["trans"])
+    else:
+        x = bs.chain_solve(t["lu"], t["base"], t["mult"], trans=case["trans"],
+                           reverse=case["reverse"], clamp=case["clamp"])
     torch.cuda.synchronize()
     return {"x": x.cpu().numpy()}
 
 
-def main(out: str) -> None:
+def main(out: str, scale: bool) -> None:
     import torch
-    from _torch_cases import dense_digest_cases, digest_inputs, sha256
+    from _torch_cases import (dense_digest_cases, dense_scale_digest_cases, digest_inputs,
+                              sha256)
     from repro_torch.kernels import _build
 
     if not torch.cuda.is_available():
@@ -56,7 +69,7 @@ def main(out: str) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     cases = []
-    for case in dense_digest_cases():
+    for case in (dense_scale_digest_cases() if scale else dense_digest_cases()):
         inputs = digest_inputs(case)
         outputs = card_outputs(case, inputs)
         cases.append({**case, "inputs": {k: sha256(v) for k, v in inputs.items()},
@@ -68,7 +81,7 @@ def main(out: str) -> None:
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "kernel_sources": {name: hashlib.sha256((_build.CSRC / name).read_bytes())
-                              .hexdigest() for name in SOURCES},
+                              .hexdigest() for name in (SOURCES_SCALE if scale else SOURCES)},
            "cases": cases}
     with open(out, "w") as fh:
         json.dump(doc, fh, indent=1)
@@ -77,4 +90,9 @@ def main(out: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else OUT)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", action="store_true",
+                    help="the V = 300 to 2049 cases (torch_card_dense_scale_digests.json)")
+    ap.add_argument("out", nargs="?", help="where to write (default: the file named above)")
+    args = ap.parse_args()
+    main(args.out or (OUT_SCALE if args.scale else OUT), args.scale)

@@ -40,12 +40,14 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_solve as ss  # noqa: E402
 from _torch_cases import (bsr_digest_cases, case_id, check_bsr_digest,  # noqa: E402
                           check_dense_digest, dense_digest_cases, dense_scale_cases,
-                          random_bits, stage_mats, with_loops)
+                          dense_scale_digest_cases, random_bits, stage_mats, with_loops)
 
 METRO_GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                             "torch_ref_metro_sw1000.npz")
 DENSE_DIGESTS = os.path.join(os.path.dirname(__file__), "data",
                              "torch_card_dense_digests.json")
+SCALE_DIGESTS = os.path.join(os.path.dirname(__file__), "data",
+                             "torch_card_dense_scale_digests.json")
 BSR_DIGESTS = os.path.join(os.path.dirname(__file__), "data", "torch_card_bsr_digests.json")
 
 pytestmark = pytest.mark.gpu
@@ -120,10 +122,29 @@ def test_dense_kernels_bit_equal_to_card_digests(cuda, case):
     assert rep["max_rel_err"] <= 1e-5
 
 
+@pytest.mark.parametrize("case", dense_scale_digest_cases(), ids=case_id)
+def test_large_v_kernels_bit_equal_to_card_digests(cuda, case):
+    """Above the shared-memory limits, ``lu_factor`` on its clusters (V =
+    300 to 1614), ``chain_solve`` on its clusters (V = 300 to 1000) and by
+    strips (V = 2049) and ``lu_solve`` by strips write the bytes that the
+    card digests of their single-block variants record (commit 8ee676d,
+    before the redesign), within 1e-5 of their plain versions, the kernel's
+    ``ok`` equal to ``factor_ok`` of its factors."""
+    with open(SCALE_DIGESTS) as fh:
+        ref = {case_id(c): c for c in json.load(fh)["cases"]}[case_id(case)]
+    rep = check_dense_digest(case, ref, cuda)
+    print(json.dumps(rep))
+    assert rep["inputs_equal"], "the numpy inputs drifted"
+    assert rep["outputs_equal"], (f"{rep['case']}: {rep['differ']} differ, max abs diff "
+                                  f"against the plain version {rep['max_abs_diff']}")
+    assert rep.get("ok_equal", True) and rep["finite_equal"]
+    assert rep["max_rel_err"] <= 1e-5
+
+
 def test_launch_plans_match_the_kernels(cuda):
     """The wrappers' launch plans agree with the CUDA sources: the shared
-    memory each variant takes, and the register variant refused above
-    V=128."""
+    memory each variant takes, the cluster sizes, the register variant
+    refused above V=128 and the cluster variant above V=1614."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -131,15 +152,21 @@ def test_launch_plans_match_the_kernels(cuda):
     def c_int(name, symbol, *args):
         return _build.function(name, symbol, [ctypes.c_int] * len(args))(*args)
 
-    for V in (1, 16, 17, 100, 128, 129, 200, 240, 241, 242, 300, 600, 1000, 1614):
+    for V in (1, 16, 17, 100, 128, 129, 200, 240, 241, 242, 300, 512, 513, 600, 1000, 1024,
+              1025, 1614):
         plan = bs.lu_factor_plan(V)
-        variant = ("registers", "shared", "global").index(plan["variant"])
+        variant = ("registers", "shared", "clusters").index(plan["variant"])
         assert c_int("batched_lu", "repro_lu_factor_smem_bytes", V, variant) == plan["smem_bytes"]
-    for V in (1, 32, 33, 100, 239, 240, 300, 1000):
+        if plan["cluster"] is not None:
+            assert c_int("batched_lu", "repro_lu_factor_cluster", V) == plan["cluster"]
+    for V in (1, 32, 33, 100, 239, 240, 256, 257, 300, 512, 513, 1000, 1024, 1025, 2048, 2049,
+              28_528):
         plan = bs.chain_solve_plan(V)
-        variant = ("shared", "strips").index(plan["variant"])
+        variant = ("shared", "strips", "clusters").index(plan["variant"])
         assert (c_int("chain_solve", "repro_chain_solve_smem_bytes", V, variant)
                 == plan["smem_bytes"])
+        if plan["cluster"] is not None:
+            assert c_int("chain_solve", "repro_chain_solve_cluster", V) == plan["cluster"]
         plan = bs.lu_solve_plan(V)
         variant = ("shared", "strips").index(plan["variant"])
         assert c_int("lu_solve", "repro_lu_solve_smem_bytes", V, variant) == plan["smem_bytes"]
@@ -152,6 +179,8 @@ def test_launch_plans_match_the_kernels(cuda):
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     assert fn(None, None, None, 0, 129, 0, None) != 0
     assert fn(None, None, None, 0, 128, 0, None) == 0
+    assert fn(None, None, None, 0, bs.LU_MAX_V + 1, 2, None) != 0
+    assert fn(None, None, None, 0, bs.LU_MAX_V, 2, None) == 0
 
 
 def test_chain_clamp_keeps_nan_on_card(cuda):
@@ -203,21 +232,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("case", dense_scale_cases(), ids=case_id)
 def test_large_v_dense_variants_match_plain(cuda, case):
     """Above the shared-memory limits: ``lu_factor`` by 32-column panels
-    and ``chain_solve`` by 32-row strips from global memory, at V = 300,
-    600 and 1000, within 1e-5 of their plain versions, the same ``ok``
-    flags (a singular and a tiny member) and the same non-finite chains (a
-    loopy one)."""
+    and ``chain_solve`` by 32-row strips from global memory, each on a
+    cluster of CTAs, at V = 300, 600 and 1000, within 1e-5 of their plain
+    versions, the same ``ok`` flags (a singular and a tiny member) and the
+    same non-finite chains (a loopy one)."""
     rep = check_dense_digest(case, None, cuda)
     print(json.dumps(rep))
     plan = (bs.lu_factor_plan if case["kernel"] == "lu_factor" else bs.chain_solve_plan)(case["V"])
-    assert plan["variant"] in ("global", "strips")
+    assert plan["variant"] == "clusters"
     assert rep.get("ok_equal", True) and rep["finite_equal"]
     assert rep["max_rel_err"] <= 1e-5
 
 
 @pytest.mark.parametrize("V", [130, 200, 241])
 def test_lu_factor_global_variant_bit_equal_to_shared(cuda, V):
-    """The panel variant takes each entry's updates in the same order as
+    """The cluster variant takes each entry's updates in the same order as
     the shared-memory variant, so where both fit they write the same
     bytes."""
     import ctypes

@@ -93,7 +93,7 @@ def test_lu_factor_plan_by_node_count(V, variant, tiles):
 @pytest.mark.parametrize("V,chunks", [(1, 1), (32, 1), (33, 2), (100, 4), (239, 8)])
 def test_chain_solve_plan_by_node_count(V, chunks):
     plan = bs.chain_solve_plan(V)
-    assert plan == {"variant": "shared", "threads": 128, "chunks": chunks,
+    assert plan == {"variant": "shared", "threads": 128, "chunks": chunks, "cluster": None,
                     "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)}
 
 

@@ -3,17 +3,17 @@
 The dense kernels keep a stage's V x V factor (or the tagged sweep's word
 matrices) in one block's shared memory up to V = 239-241 (Vp = 960 for the
 bitsets); above that each wrapper launches a variant that reads them from
-global memory (``lu_factor`` by 32-column panels, ``chain_solve`` and
-``lu_solve`` by 32-row strips, ``tagged`` word by word).  Which variant runs
-and the shared memory it takes are host logic, held here at V = 100, 239,
-240, 241, 300, 600 and 1000 (the card test
-``test_launch_plans_match_the_kernels`` holds the bytes to the CUDA
-sources); a plan raises only where even the global-memory layout does not
-fit.  And the dense route agrees with the sparse route on one ladder step
-of ``metro_instance("sw", 300)`` (the smallest size of
-``benchmarks/gp_scaling.py``'s dense leg), through the plain versions:
-rung costs, chosen rung, residual and every candidate's flows within
-1e-5; and, at V=300, with the reference's ``solver="dense"`` solve
+global memory (``lu_factor`` by 32-column panels and ``chain_solve`` by
+32-row strips, each on a cluster of CTAs, ``lu_solve`` by strips in one
+block, ``tagged`` word by word).  Which variant runs, its cluster size and
+the shared memory it takes are host logic, held here at V = 100 to 2049
+(the card test ``test_launch_plans_match_the_kernels`` holds the bytes and
+cluster sizes to the CUDA sources); a plan raises only where even the
+global-memory layout does not fit.  And the dense route agrees with the
+sparse route on one ladder step of ``metro_instance("sw", 300)`` (the
+smallest size of ``benchmarks/gp_scaling.py``'s dense leg), through the
+plain versions: rung costs, chosen rung, residual and every candidate's
+flows within 1e-5; and, at V=300, with the reference's ``solver="dense"`` solve
 (``tests/data/torch_ref_dense_sw300.npz``): traffic and marginals at
 ``init_phi`` and the first two steps of a latch-off solve within 1e-5.
 """
@@ -35,12 +35,19 @@ LIMIT = 232_448
 VARIANTS = {
     100: ("registers", "shared", "shared", "shared"),
     239: ("shared", "shared", "shared", "shared"),
-    240: ("shared", "strips", "shared", "shared"),
-    241: ("shared", "strips", "strips", "shared"),
-    300: ("global", "strips", "strips", "shared"),
-    600: ("global", "strips", "strips", "shared"),
-    1000: ("global", "strips", "strips", "global"),
+    240: ("shared", "clusters", "shared", "shared"),
+    241: ("shared", "clusters", "strips", "shared"),
+    300: ("clusters", "clusters", "strips", "shared"),
+    600: ("clusters", "clusters", "strips", "shared"),
+    1000: ("clusters", "clusters", "strips", "global"),
 }
+# V: (lu_factor's, chain_solve's) CTAs a cluster
+CLUSTERS = {240: (None, 2), 241: (None, 2), 256: (2, 2), 257: (2, 2), 300: (2, 2),
+            512: (2, 2), 513: (2, 4), 600: (2, 4), 1000: (2, 4), 1024: (2, 4),
+            1025: (4, 8), 1614: (4, 8), 2048: (None, 8), 2049: (None, None)}
+# lu_factor's clusters: 128 staged rows of L (36 floats each), sixteen U12
+# blocks and the 32 x 33 L11 block
+LU_UPDATE_BYTES = 4 * (128 * 36 + 16 * 32 * 32 + 32 * 33)
 
 
 @pytest.mark.parametrize("V", sorted(VARIANTS))
@@ -50,13 +57,15 @@ def test_dense_launch_plans_by_node_count(V):
     plan = bs.lu_factor_plan(V)
     assert plan["variant"] == lu_v and plan["threads"] == 256
     assert plan["smem_bytes"] == {"registers": 2048 + tile, "shared": tile,
-                                  "global": 4 * 36 * V}[lu_v]
+                                  "clusters": LU_UPDATE_BYTES}[lu_v]
     plan = bs.chain_solve_plan(V)
     assert plan["variant"] == chain_v
     assert plan == ({"variant": "shared", "threads": 128, "chunks": -(-V // 32),
-                     "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)} if chain_v == "shared"
-                    else {"variant": "strips", "threads": 256, "chunks": None,
-                          "smem_bytes": 4 * (2 * V + 32 * 33)})
+                     "cluster": None, "smem_bytes": 4 * (64 + V * (V | 1) + 2 * V)}
+                    if chain_v == "shared"
+                    else {"variant": "clusters", "threads": 256, "chunks": None,
+                          "cluster": plan["cluster"],
+                          "smem_bytes": 4 * (2 * V + 32 + 8 * 32 * 33)})
     plan = bs.lu_solve_plan(V)
     assert plan["variant"] == solve_v
     assert plan["smem_bytes"] == (4 * (V * (V | 1) + V) if solve_v == "shared"
@@ -68,6 +77,32 @@ def test_dense_launch_plans_by_node_count(V):
     for p in (bs.lu_factor_plan(V), bs.chain_solve_plan(V), bs.lu_solve_plan(V),
               bset.tagged_plan(Vp, W)):
         assert p["smem_bytes"] <= LIMIT
+
+
+@pytest.mark.parametrize("V", sorted(CLUSTERS))
+def test_cluster_plans_by_node_count(V):
+    """A cluster of CTAs a member (``lu_factor``: every CTA owns at most 16
+    of the ceil(V / 32) panels; 2 CTAs up to V = 1024, 4 above) and a chain
+    (``chain_solve``: the least power of two from 2 that gives each 32-row
+    strip one of a CTA's 8 warps, up to V = 2048; above, one block a chain
+    by strips)."""
+    lu_c, chain_c = CLUSTERS[V]
+    if V <= 1614:
+        plan = bs.lu_factor_plan(V)
+        assert plan["cluster"] == lu_c
+        if lu_c is not None:
+            assert lu_c * 16 >= -(-V // 32) and (lu_c == 2 or lu_c * 8 < -(-V // 32))
+            assert plan["smem_bytes"] == LU_UPDATE_BYTES
+    plan = bs.chain_solve_plan(V)
+    assert plan["cluster"] == chain_c
+    if chain_c is not None:
+        assert plan["variant"] == "clusters" and plan["threads"] == 256
+        assert chain_c * 8 >= -(-V // 32) and (chain_c == 2 or chain_c * 4 < -(-V // 32))
+    else:
+        assert plan["variant"] in ("shared", "strips")
+        if V > 2048:
+            assert plan == {"variant": "strips", "threads": 256, "chunks": None,
+                            "cluster": None, "smem_bytes": 4 * (2 * V + 32 * 33)}
 
 
 def test_each_variant_takes_over_where_the_last_stops_fitting():
