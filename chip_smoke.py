@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check what it computes.
 
-    python3 chip_smoke.py [--prev DIR]
+    python3 chip_smoke.py [--prev DIR] [--parent TREE]
 
 Runs from the root of a checkout and needs one card; it builds the port's
 CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` into
@@ -10,10 +10,14 @@ earlier versions of the redesigned kernels: ``bsr_chain.cu`` (as at
 commit f4ca93a), ``batched_lu.cu``, ``chain_solve.cu`` and
 ``strip_sweep.cuh`` (as at commit 8ee676d: the global-memory variants
 before their clusters), ``flash_attention.cu`` and ``ssd_chunk.cu`` (as at
-commit 14c1039), unpacked with ``git show``: those DIR holds are built
-beside the others and timed against the redesigned kernels in the
-``kernel`` (sw-queue and V = 300 / 600 / 1000) and ``model_kernels``
-phases.  One JSON line per
+commit 14c1039), ``tagged.cu`` and ``tagged_nbr.cu`` (as at commit
+5b53a6a: the packed-word and gathered-bool kernels, before the blocked
+sets became one launch), unpacked with ``git show``: those DIR holds are
+built beside the others and timed against the redesigned kernels in the
+``kernel`` (sw-queue, metro-sw and V = 300 / 600 / 1000) and
+``model_kernels`` phases.  ``--parent TREE`` (a checkout of the parent
+commit, e.g. ``git archive`` under ``build/``) adds the ``versus_parent``
+phase.  One JSON line per
 phase:
 
   1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32.
@@ -26,14 +30,22 @@ phase:
      lu_factor at B=90 (the iterate) and B=1080 (the 12-rung ladder);
      chain_solve for the traffic sweep (30 chains, trans=1), the marginal
      sweep (30 chains, trans=0, reverse, clamp) and the ladder (360 chains);
-     tagged at B=90.  Float kernels within 1e-5 relative (they sum in
-     another order and fuse multiply-adds), tagged bit-exact; ``lu_factor``'s
-     own ``ok`` flags equal to ``factor_ok`` of its factors.  With
+     tagged (the dense blocked-set kernel: ``phi_e``, ``pdt`` and ``adj`` in,
+     the (B, V, V) blocked mask out) at B=90 on the iterate and on congested
+     inputs.  Float kernels within 1e-5 relative (they sum in another order
+     and fuse multiply-adds), tagged bool-equal (mask and tagged flags, the
+     flags also the dense sweep's) and one launch, the kernel alone in the
+     profiler's trace; ``lu_factor``'s own ``ok`` flags equal to
+     ``factor_ok`` of its factors.  With
      ``--prev``, ``lu_factor`` and ``chain_solve`` also against their earlier
      versions (commit 8ee676d; these variants are unchanged there) on the
      same inputs: output bytes equal, and ``prev_ms`` the earlier kernel's
      device time per launch, timed in turns (earlier, new, new, earlier;
-     ``abba_ms``).  ``ms`` is
+     ``abba_ms``); ``tagged`` against the composition of commit 5b53a6a it
+     replaces (route, worse and improper as tensors, packed words, the
+     earlier kernel, unpacking, the four-term OR): the same mask, and
+     ``prev_ms`` / ``prev_launches_per_call`` the composition's whole
+     device time and launches per call, in turns.  ``ms`` is
      the kernel's device time per launch from ``torch.profiler`` (the
      per-call event time if the trace shows no device events);
      ``event_ms``, ``plain_ms`` and ``library_ms`` are per call: CUDA
@@ -70,10 +82,13 @@ phase:
      metro-sw V=1000 at ``init_phi`` (traffic, marginal and the 36-member
      ladder sweeps), on metro-geant V=1000 (traffic, the widest block
      rows) and on the congested sw-queue ladder (rate_scale 2) with
-     routing loops put into three members; ``tagged_nbr`` on metro-sw
-     V=1000 and on congested sw-queue inputs.  Values within 1e-5 with the
-     same +inf entries and the same sweep counts (kernel and plain version
-     share one summation order); tagged bit-exact.  The ``bsr_chain``
+     routing loops put into three members; ``tagged_nbr`` (the
+     neighbor-list blocked-set kernel, the whole mask in one launch) on
+     metro-sw V=1000 and on congested sw-queue inputs.  Values within 1e-5
+     with the same +inf entries and the same sweep counts (kernel and plain
+     version share one summation order); tagged_nbr bool-equal (mask,
+     tagged flags and round counts; the mask also the dense kernel's), and
+     with ``--prev`` against commit 5b53a6a's composition as ``tagged``.  The ``bsr_chain``
      wrapper launches its kernel alone (it reads ``phi_e``; no gather):
      ``gather_ms_before`` is the ``block_values`` gather the earlier kernel
      needed.  With ``--prev``, the earlier kernel on the same inputs: bit-equal
@@ -95,7 +110,7 @@ phase:
   9b. kernel (dense, large V) — ``lu_factor`` (32-column panels, a
      cluster of CTAs a member), ``chain_solve`` (32-row strips, a cluster a
      chain, a warp a strip), ``lu_solve`` (32-row strips) and ``tagged``
-     (words from global memory at V=1000) against their plain versions at
+     (a cluster of 16 CTAs a row batch) against their plain versions at
      V = 300, 600 and 1000, on the ladder candidates and stage systems of
      ``without_sparse(metro_instance("sw", V))`` (within 1e-5, ``ok`` flags
      equal; ``torch.linalg.lu_factor`` / ``lu_solve`` beside them) and on
@@ -200,14 +215,20 @@ phase:
   17. sweep_profile — ``torch.profiler`` over 32 batched iterations of the
      Fig. 6 family and of Fig. 5's sw-queue group: device time per step by
      kernel, launches per step, idle share.
+  18. versus_parent (``--parent TREE`` only) — ``scripts/compare_solve.py
+     TREE . --profile`` on the sw-queue solve, 32 metro-sw steps, 32 dense
+     V = 300 steps and the batched Fig. 6 GP sweep, parent, change, change,
+     parent, each in its own process: wall times, launches and device ms per
+     step, and the cost histories' digests, equal in all four runs.
 
 Then the ``kernels`` line (each kernel's ``launches`` counted over the
 main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
 ``propagate_step``, which lie on no solver path; ``prev_ms`` and
-``prev_commit`` for the five redesigned kernels, the commit their earlier
-versions come from; ``prev_ms`` null for the others and without
+``prev_commit`` for the seven redesigned kernels, the commit their earlier
+versions come from (for ``tagged`` and ``tagged_nbr`` the composition they
+replace, with ``prev_launches_per_call``); ``prev_ms`` null for the others and without
 ``--prev``; ``bound_tc_ms`` for the two model kernels), the card's
 ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -358,9 +379,11 @@ def phase_device():
 # f4ca93a; ``flash_attention`` and ``ssd_chunk``, as at commit 14c1039),
 # built from their earlier versions (``--prev DIR``, whichever of them DIR
 # holds) to be timed beside the new ones.
-PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain", "flash_attention", "ssd_chunk")
+PREV_SOURCES = ("batched_lu", "chain_solve", "bsr_chain", "flash_attention", "ssd_chunk",
+                "tagged", "tagged_nbr")
 PREV_COMMIT_MODELS = "14c1039"
 PREV_COMMIT_DENSE = "8ee676d"
+PREV_COMMIT_TAGGED = "5b53a6a"
 PREV_BUILD = os.path.join(HERE, "build", "prev_kernels")
 
 
@@ -429,6 +452,10 @@ class PrevKernels:
                              [vp] * 4 + [i] * 8 + [ctypes.c_float, vp])
         if "ssd_chunk" in self.has:
             self._ssd = fn("ssd_chunk", "repro_ssd_chunk", [vp] * 7 + [i] * 5 + [vp])
+        if "tagged" in self.has:
+            self._tagged = fn("tagged", "repro_tagged", [vp] * 3 + [i] * 4 + [vp])
+        if "tagged_nbr" in self.has:
+            self._tagged_nbr = fn("tagged_nbr", "repro_tagged_nbr", [vp] * 5 + [i] * 3 + [vp])
 
     @staticmethod
     def _stream():
@@ -504,6 +531,59 @@ class PrevKernels:
         return y, state
 
 
+    def blocked_set(self, adj, phi_e, pdt, eps):
+        """The blocked mask as commit 5b53a6a computes it on the dense
+        route (its ``engine.blocked_sets`` and ``ops.blocked_tagged``): route,
+        worse and improper as V x V tensors, both packed into int32 words by
+        int64 arithmetic and padded to Vp rows, its packed-word kernel,
+        unpacked, and the four-term OR."""
+        import torch
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import blocked_sets as bset
+
+        route = phi_e > 0.0
+        worse = pdt[..., None, :] > pdt[..., :, None] + eps
+        improper = route & worse
+        lead, V = route.shape[:-2], route.shape[-1]
+        Vp, W = bset.padded_nodes(V)
+
+        def packed(x):
+            bits = bset.pack_bits(x.reshape(-1, V, V))
+            pad = bits.new_zeros((bits.shape[0], Vp - V, bits.shape[2]))
+            return torch.cat([bits, pad], dim=1).contiguous()
+
+        r, i = packed(route), packed(improper)
+        words = torch.empty((r.shape[0], W), dtype=torch.int32, device=r.device)
+        # its plan: both word matrices in shared memory where they fit
+        variant = 0 if 4 * (2 * Vp * W + 2 * W) <= _build.SMEM_LIMIT else 1
+        require(self._tagged(r.data_ptr(), i.data_ptr(), words.data_ptr(), r.shape[0], Vp, W,
+                             variant, self._stream()) == 0, "earlier tagged launch")
+        tagged = bset.unpack_bits(words, V).reshape(lead + (V,))
+        return (~adj[..., None, None, :, :]) | improper | worse | tagged[..., None, :]
+
+    def blocked_set_nbr(self, adj, phi_e, pdt, nbr, mask, eps):
+        """The sparse route's blocked mask as commit 5b53a6a computes it:
+        V x V route, worse and improper, both gathered onto the neighbor
+        lists, its gathered-bool kernel, and the four-term OR."""
+        import torch
+
+        route = phi_e > 0.0
+        worse = pdt[..., None, :] > pdt[..., :, None] + eps
+        improper = route & worse
+        lead, V = route.shape[:-2], route.shape[-1]
+        idx = nbr.expand(route.reshape(-1, V, V).shape[:1] + nbr.shape)
+        rv = torch.gather(route.reshape(-1, V, V), -1, idx) & mask
+        iv = torch.gather(improper.reshape(-1, V, V), -1, idx)
+        B, _, D = rv.shape
+        out = torch.empty((B, V), dtype=torch.bool, device=rv.device)
+        rounds = torch.empty((B,), dtype=torch.int32, device=rv.device)
+        require(self._tagged_nbr(rv.data_ptr(), iv.data_ptr(), nbr.data_ptr(), out.data_ptr(),
+                                 rounds.data_ptr(), B, V, D, self._stream()) == 0,
+                "earlier tagged_nbr launch")
+        tagged = out.reshape(lead + (V,))
+        return (~adj[..., None, None, :, :]) | improper | worse | tagged[..., None, :]
+
+
 def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit,
                  same_bits: bool = True) -> dict:
     """The redesigned kernel against its earlier version (``old_fn``, None
@@ -535,24 +615,84 @@ def _versus_prev(old_fn, new_fn, new_out, symbol, what, prev_commit,
             "bit_equal_prev": True if same_bits else None, "prev_commit": prev_commit}
 
 
-def _tagged_rounds(route_bits, imp_bits):
-    """Rounds each member's fixed point takes (the last one confirms it)."""
-    import torch
-    from repro_torch.kernels import blocked_sets as bset
+def function_ms(fn, calls: int = 20) -> tuple:
+    """(device ms, kernel launches) per call of ``fn``, every kernel it
+    launches counted (``torch.profiler`` over ``calls`` calls); (None,
+    None) if the trace holds no device events."""
+    kern = device_kernels(fn, calls)
+    ms = sum(v for v, _ in kern.values())
+    return (ms / calls, sum(n for _, n in kern.values()) / calls) if ms > 0 else (None, None)
 
-    B, Vp, W = route_bits.shape
-    tb = torch.zeros((B, W), dtype=torch.int32, device=route_bits.device)
-    rounds = torch.zeros(B, dtype=torch.int64, device=route_bits.device)
-    live = torch.ones(B, dtype=torch.bool, device=route_bits.device)
-    for _ in range(Vp + 1):
-        rounds += live
-        hit = imp_bits | (route_bits & tb[:, None, :])
-        nb = bset.pack_bits((hit != 0).any(dim=-1))
-        live = live & (nb != tb).any(dim=-1)
-        tb = nb
-        if not bool(live.any()):
-            break
-    return int(rounds.sum())
+
+def _blocked_row(new, plain, old, got, symbol, what, nbytes):
+    """The timing and launch columns of one blocked-set case: the kernel
+    (``new``, one launch: the profiler's trace shows it alone), its plain
+    version, the bound (bytes: phi, pdt, adj and the mask once; the
+    rounds' operations are a few per edge and round), and with ``old``
+    (``--prev``) the composition of commit 5b53a6a that the kernel replaces
+    on the same inputs: bool-equal, its whole device time and launches per
+    call, timed in turns against the kernel (old, new, new, old)."""
+    import torch
+
+    launched = device_kernels(new, 3)
+    require(len(launched) == 1 and symbol in next(iter(launched)),
+            f"{what}: one launch, the kernel alone: {sorted(launched)}")
+    b_ms, b_by = bound(nbytes, 0)
+    row = {**timed(new, symbol), "launches_per_call": 1,
+           "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by, "prev_commit": PREV_COMMIT_TAGGED}
+    if not old:
+        return {**row, "prev_ms": None}
+    require(torch.equal(old(), got), f"{what}: bool-equal to the composition of the parent")
+    turns = [function_ms(old), function_ms(new), function_ms(new), function_ms(old)]
+    ev = [time_ms(old), time_ms(new), time_ms(new), time_ms(old)]
+    prev_ms = (turns[0][0] + turns[3][0]) / 2
+    return {**row, "prev_ms": prev_ms, "abba_ms": [t[0] for t in turns],
+            "prev_launches_per_call": turns[0][1], "speedup": prev_ms / ((turns[1][0] + turns[2][0]) / 2),
+            "prev_event_ms": (ev[0] + ev[3]) / 2, "abba_event_ms": ev,
+            "bit_equal_prev": True}
+
+
+def _dense_blocked_row(label, inst, pe, pdt, prev, **extra):
+    """One case of the dense blocked-set kernel: ``ops.blocked_set`` on the
+    card against the plain version (mask and tagged flags), the scan and
+    the numpy contract's flags (the dense sweep), and the parent's
+    composition with ``prev``."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import blocked_sets as bset
+    from repro_torch.kernels import ops
+
+    V = inst.V
+    eps = engine.BLOCK_EPS
+    adj3, pe3, pd2 = (x.contiguous() for x in (inst.adj.reshape(-1, V, V),
+                                               pe.reshape(-1, V, V), pdt.reshape(-1, V)))
+    B = pe3.shape[0]
+
+    def new():
+        return ops.blocked_set(inst.adj, pe, pdt, eps=eps)
+
+    got = new()
+    mask, tagged = bset.blocked_dense(pe3, pd2, adj3, eps=eps, with_tagged=True)
+    want, want_tagged = bset.blocked_dense_plain(pe3, pd2, adj3, eps=eps, with_tagged=True)
+    require(torch.equal(got.reshape(-1, V, V), mask) and torch.equal(mask, want)
+            and torch.equal(tagged, want_tagged),
+            f"tagged {label}: mask and tagged flags bool-equal to the plain version")
+    route = pe3 > 0.0
+    improper = route & (pd2[:, None, :] > pd2[:, :, None] + eps)
+    require(torch.equal(tagged, bset.tagged_scan_dense(route, improper)),
+            f"tagged {label}: tagged flags equal the dense sweep")
+    plan = bset.blocked_dense_plan(V)
+    row = {"shape": [B, V], "members": adj3.shape[0], "cluster": plan["cluster"],
+           "words_per_cta": plan["words"], "tagged_nodes": int(tagged.sum()),
+           "improper_links": int(improper.sum()), "max_abs_err": 0.0, **extra,
+           **_blocked_row(new, lambda: bset.blocked_dense_plain(pe3, pd2, adj3, eps=eps),
+                          prev and "tagged" in prev.has
+                          and (lambda: prev.blocked_set(inst.adj, pe, pdt, eps)),
+                          got, "tagged_dense_kernel", f"tagged {label}",
+                          pe3.numel() * 4 + pd2.numel() * 4 + adj3.numel() + got.numel())}
+    emit({"phase": "kernel", "name": "tagged", "case": label, **row})
+    return row
 
 
 def phase_kernels(prev=None):
@@ -562,7 +702,6 @@ def phase_kernels(prev=None):
     import torch
     from repro_torch.core import engine, gp, marginals, network, traffic
     from repro_torch.kernels import batched_solve as bs
-    from repro_torch.kernels import blocked_sets as bset
     from repro_torch.kernels import ops
 
     # a 10-iteration iterate: fractional splits, unlike the integral init
@@ -642,40 +781,17 @@ def phase_kernels(prev=None):
         chain_rows.append(row)
     results["chain_solve"] = chain_rows
 
-    # tagged: the iterate's blocked-set inputs, and a congested variant
-    # (routes of a 3-iteration iterate at twice the rates under the init
-    # strategy's marginals: stale marginals make improper links)
+    # tagged (the dense blocked-set kernel): the iterate's blocked-set
+    # inputs, and a congested variant (routes of a 3-iteration iterate at
+    # four times the rates under the init strategy's marginals: stale
+    # marginals make improper links)
     m = marginals.marginals(inst, phi, fl, fact)
     hot = network.table_ii_instance("sw-queue", rate_scale=4.0)
     hot_phi = gp.solve(hot, alpha=0.1, max_iters=3, patience=10**6, tol=0.0).phi
     hot_pdt = marginals.marginals(hot, gp.init_phi(hot)).pdt
     tag_rows = []
     for label, pe, pdt in (("iterate", phi.e, m.pdt), ("congested", hot_phi.e, hot_pdt)):
-        route = pe > 0.0
-        improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
-        Vp, W = bset.padded_nodes(V)
-
-        def packed(x):
-            bits = bset.pack_bits(x.reshape(-1, V, V))
-            pad = bits.new_zeros((bits.shape[0], Vp - V, W))
-            return torch.cat([bits, pad], dim=1).contiguous()
-
-        r, i = packed(route), packed(improper)
-        B = r.shape[0]
-        got, want = bset.tagged(r, i), bset.tagged_plain(r, i)
-        require(torch.equal(got, want), f"tagged {label}: words bit-equal")
-        dense = bset.tagged_scan_dense(route.reshape(-1, V, V), improper.reshape(-1, V, V))
-        require(torch.equal(bset.unpack_bits(got, V), dense),
-                f"tagged {label}: equals the dense sweep")
-        b_ms, b_by = bound(2 * r.numel() * 4 + got.numel() * 4,
-                           3 * _tagged_rounds(r, i) * Vp * W)
-        row = {"shape": [B, Vp, W], "tagged_nodes": int(dense.sum()),
-               "improper_links": int(improper.sum()), "max_abs_err": 0.0,
-               **timed(lambda: bset.tagged(r, i), "tagged_kernel"),
-               "plain_ms": time_ms(lambda: bset.tagged_plain(r, i)),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernel", "name": "tagged", "case": label, **row})
-        tag_rows.append(row)
+        tag_rows.append(_dense_blocked_row(label, inst, pe, pdt, prev))
     results["tagged"] = tag_rows
     ops.reset_launch_counts()
     return results
@@ -824,10 +940,10 @@ def phase_profile(ms_per_step: float) -> None:
     ours = {name: sum(v for k, v in per_step.items() if sym in k)
             for name, sym in (("lu_factor", "lu_kernel"),
                               ("chain_solve", "chain_kernel"),
-                              ("tagged", "tagged_kernel"))}
+                              ("tagged", "tagged_dense_kernel"))}
     others = sorted(((v, k) for k, v in per_step.items()
                      if not any(s in k for s in ("lu_kernel", "chain_kernel",
-                                                 "tagged_kernel"))), reverse=True)
+                                                 "tagged_dense_kernel"))), reverse=True)
     emit({"phase": "profile", "steps": steps,
           "device_ms_per_step": busy if traced else None,
           "kernels_ms_per_step": ours,
@@ -940,46 +1056,60 @@ def _bsr_row(label, inst, phi_e, base, mult, trans, reverse=False, clamp=False, 
     return row
 
 
-def _tagged_nbr_row(label, inst, route, improper):
-    """One ``tagged_nbr`` case: kernel against plain version, bit-exact."""
+def _tagged_nbr_row(label, inst, pe, pdt, prev):
+    """One case of the neighbor-list blocked-set kernel: ``ops.
+    blocked_set_nbr`` on the card against the plain version (mask, tagged
+    flags, round counts), the dense sweep's flags and the dense kernel's
+    mask, and the parent's composition with ``prev``."""
     import torch
+    from repro_torch.core import engine
     from repro_torch.kernels import blocked_sets as bset
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_solve as ss
 
     V = inst.V
-    r2, i2 = route.reshape(-1, V, V), improper.reshape(-1, V, V)
-    nbr = inst.out_nbr
-    idx = nbr.expand((r2.shape[0],) + nbr.shape)
-    rv = torch.gather(r2, -1, idx) & inst.out_mask
-    iv = torch.gather(i2, -1, idx)
-    got, rounds = ss.tagged_nbr(rv, iv, nbr, with_rounds=True)
-    want, rounds_plain = ss.tagged_nbr_plain(rv, iv, nbr, with_rounds=True)
-    require(torch.equal(got, want) and torch.equal(rounds, rounds_plain),
-            f"tagged_nbr {label}: flags and rounds bit-equal")
-    require(torch.equal(got, bset.tagged_scan_dense(r2, i2)),
+    eps = engine.BLOCK_EPS
+    nbr, mask = inst.out_nbr, inst.out_mask
+    adj3, pe3, pd2 = (x.contiguous() for x in (inst.adj.reshape(-1, V, V),
+                                               pe.reshape(-1, V, V), pdt.reshape(-1, V)))
+    B, D = pe3.shape[0], nbr.shape[1]
+
+    def new():
+        return ops.blocked_set_nbr(inst.adj, pe, pdt, nbr, mask, eps=eps)
+
+    got = new()
+    out, tagged, rounds = ss.blocked_nbr(pe3, pd2, adj3, nbr, mask, eps=eps, with_rounds=True)
+    want = ss.blocked_nbr_plain(pe3, pd2, adj3, nbr, mask, eps=eps, with_rounds=True)
+    require(torch.equal(got.reshape(-1, V, V), out)
+            and all(torch.equal(a, b) for a, b in zip((out, tagged, rounds), want)),
+            f"tagged_nbr {label}: mask, flags and rounds bool-equal to the plain version")
+    route = pe3 > 0.0
+    improper = route & (pd2[:, None, :] > pd2[:, :, None] + eps)
+    require(torch.equal(tagged, bset.tagged_scan_dense(route, improper)),
             f"tagged_nbr {label}: equals the dense sweep")
-    if V <= 200:   # the bitset kernel holds (Vp, W) words in shared memory
-        require(torch.equal(got, ops.blocked_tagged(r2, i2)),
-                f"tagged_nbr {label}: equals the bitset kernel")
-    B, _, D = rv.shape
-    # only the edges carry work; the masked columns pad the degree to D
-    edges = int(inst.out_mask.sum())
-    b_ms, b_by = bound(2 * B * edges + edges * 8 + got.numel() + B * 4,
-                       int(rounds.sum()) * edges * 2)
-    row = {"shape": [B, V, D], "edges": edges, "tagged_nodes": int(got.sum()),
+    require(torch.equal(out, bset.blocked_dense(pe3, pd2, adj3, eps=eps)),
+            f"tagged_nbr {label}: equals the dense blocked-set kernel")
+    # the mask is written whole; the edges carry the rounds' work
+    edges = int(mask.sum())
+    plan = ss.blocked_nbr_plan(V, D)
+    row = {"shape": [B, V, D], "edges": edges, "cluster": plan["cluster"],
+           "words_per_cta": plan["words"], "tagged_nodes": int(tagged.sum()),
            "improper_links": int(improper.sum()), "rounds_max": int(rounds.max()),
            "rounds_total": int(rounds.sum()), "max_abs_err": 0.0,
-           **timed(lambda: ss.tagged_nbr(rv, iv, nbr), "tagged_nbr_kernel"),
-           "plain_ms": time_ms(lambda: ss.tagged_nbr_plain(rv, iv, nbr)),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           **_blocked_row(new, lambda: ss.blocked_nbr_plain(pe3, pd2, adj3, nbr, mask, eps=eps),
+                          prev and "tagged_nbr" in prev.has
+                          and (lambda: prev.blocked_set_nbr(inst.adj, pe, pdt, nbr, mask, eps)),
+                          got, "tagged_nbr_mask_kernel", f"tagged_nbr {label}",
+                          B * edges * 4 + pd2.numel() * 4 + adj3.numel() + got.numel()
+                          + nbr.numel() * 9)}
     emit({"phase": "kernel", "name": "tagged_nbr", "case": label, **row})
     return row
 
 
 def phase_sparse_kernels(prev=None):
     """The metro path's kernels vs their plain versions at its shapes (and
-    with ``prev`` the redesigned ``bsr_chain`` against its earlier version)."""
+    with ``prev`` the redesigned ``bsr_chain`` and the neighbor-list
+    blocked sets against their earlier versions)."""
     from _torch_cases import with_loops
     from repro_torch.core import engine, gp, marginals, network, traffic
     from repro_torch.kernels import ops
@@ -996,10 +1126,7 @@ def phase_sparse_kernels(prev=None):
     bsr_rows.append(_bsr_row(
         "metro-sw-marginals", metro, phi.e,
         marginals.pdt_base(metro, phi, m.Dp, m.Cp), phi.c, 0, True, True, prev=prev))
-    route = phi.e > 0.0
-    tag_rows.append(_tagged_nbr_row(
-        "metro-sw", metro, route,
-        route & (m.pdt[:, :, None, :] > m.pdt[:, :, :, None] + engine.BLOCK_EPS)))
+    tag_rows.append(_tagged_nbr_row("metro-sw", metro, phi.e, m.pdt, prev))
     bsr_rows.append(_bsr_row("metro-sw-ladder", metro, cands.e,
                              *traffic.chain_inputs(metro, cands), 1, prev=prev))
     del cands, fl, m
@@ -1020,10 +1147,7 @@ def phase_sparse_kernels(prev=None):
             "bsr_chain loopy case: one member at the cap, one latched")
     bsr_rows.append(row)
     stale = marginals.marginals(hot, gp.init_phi(hot)).pdt
-    route = hphi.e > 0.0
-    tag_rows.append(_tagged_nbr_row(
-        "sw-queue-congested", hot, route,
-        route & (stale[:, :, None, :] > stale[:, :, :, None] + engine.BLOCK_EPS)))
+    tag_rows.append(_tagged_nbr_row("sw-queue-congested", hot, hphi.e, stale, prev))
     ops.reset_launch_counts()
     return {"bsr_chain": bsr_rows, "tagged_nbr": tag_rows}
 
@@ -1143,7 +1267,7 @@ def phase_metro_profile(ms_per_step: float) -> None:
     traced = busy > 0
     ours = {name: sum(v for k, v in per_step.items() if sym in k)
             for name, sym in (("bsr_chain", "bsr_chain"),
-                              ("tagged_nbr", "tagged_nbr_kernel"))}
+                              ("tagged_nbr", "tagged_nbr_mask_kernel"))}
     top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
     emit({"phase": "metro_profile", "steps": steps,
           "device_ms_per_step": busy if traced else None,
@@ -1185,9 +1309,8 @@ def phase_dense_scale_kernels(inputs, prev=None):
     inputs (bytes equal, timed in turns)."""
     import torch
     from _torch_cases import case_id, check_dense_digest, dense_scale_cases, digest_key
-    from repro_torch.core import engine, traffic
+    from repro_torch.core import traffic
     from repro_torch.kernels import batched_solve as bs
-    from repro_torch.kernels import blocked_sets as bset
     from repro_torch.kernels import ops
 
     rows = {"lu_factor": [], "chain_solve": [], "lu_solve": [], "tagged": []}
@@ -1270,33 +1393,10 @@ def phase_dense_scale_kernels(inputs, prev=None):
         emit({"phase": "kernel", "name": "lu_solve", **row})
         rows["lu_solve"].append(row)
 
-        # tagged: the iterate's blocked-set inputs (stale-marginal improper
-        # links on the ladder's first rung make the sweep do work)
-        route = cands.e[1] > 0.0
-        improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
-        Vp, W = bset.padded_nodes(V)
-
-        def packed(x):
-            bits = bset.pack_bits(x.reshape(-1, V, V))
-            return torch.cat([bits, bits.new_zeros((bits.shape[0], Vp - V, W))],
-                             dim=1).contiguous()
-
-        r, i = packed(route), packed(improper)
-        got, want = bset.tagged(r, i), bset.tagged_plain(r, i)
-        require(torch.equal(got, want), f"tagged V={V}: words bit-equal")
-        require(torch.equal(ops.blocked_tagged(route, improper).reshape(-1, V),
-                            bset.unpack_bits(want, V)), f"tagged V={V}: through ops")
-        b_ms, b_by = bound(2 * r.numel() * 4 + got.numel() * 4,
-                           3 * _tagged_rounds(r, i) * Vp * W)
-        row = {"case": f"metro-sw-V{V}", "shape": [r.shape[0], Vp, W],
-               "variant": bset.tagged_plan(Vp, W)["variant"],
-               "tagged_nodes": int(bset.unpack_bits(got, V).sum()),
-               "improper_links": int(improper.sum()), "max_abs_err": 0.0,
-               **timed(lambda: bset.tagged(r, i), "tagged_kernel"),
-               "plain_ms": time_ms(lambda: bset.tagged_plain(r, i), reps=1),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernel", "name": "tagged", **row})
-        rows["tagged"].append(row)
+        # tagged: the ladder's first rung under the iterate's marginals
+        # (stale-marginal improper links make the rounds do work)
+        rows["tagged"].append(_dense_blocked_row(f"metro-sw-V{V}", inst, cands.e[1], pdt,
+                                                 prev))
         del inst, phi, cands, pdt, mats, lu, fa, lu3, fi
     failed = []
     for case in dense_scale_cases():
@@ -2236,7 +2336,7 @@ def phase_sweep_profile():
         busy = sum(per_step.values())
         ours = {name: sum(v for k, v in per_step.items() if sym in k)
                 for name, sym in (("lu_factor", "lu_kernel"), ("chain_solve", "chain_kernel"),
-                                  ("tagged", "tagged_kernel"))}
+                                  ("tagged", "tagged_dense_kernel"))}
         top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
         emit({"phase": "sweep_profile", "family": label, "members": len(fam),
               "V": binst.V, "steps": steps, "ms_per_step": ms_step,
@@ -2245,6 +2345,46 @@ def phase_sweep_profile():
               "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
               "idle_share": 1 - busy / ms_step if busy > 0 else None,
               "top": [[k[:80], v] for v, k in top[:8]]})
+
+
+PARENT_PATHS = ("solve", "metro", "dense300", "fig6")
+
+
+def phase_versus_parent(tree):
+    """Parent against change on the main paths (``--parent TREE``, a
+    checkout of the parent commit): ``scripts/compare_solve.py TREE .
+    --profile`` for the sw-queue solve, 32 metro-sw steps, 32 dense V = 300
+    steps and the batched Fig. 6 GP sweep, each tree in its own process, in
+    the order parent, change, change, parent.  Per path: each tree's wall
+    times and their medians, launches and device ms per step from the
+    profiler, and the cost histories' digests, which must agree (the
+    blocked sets are bit-equal, so every trajectory is the parent's)."""
+    script = os.path.join(HERE, "scripts", "compare_solve.py")
+    out = {}
+    for what in PARENT_PATHS:
+        proc = subprocess.run([sys.executable, script, os.path.abspath(tree), HERE, "--what",
+                               what, "--rounds", "1", "--reps", "3" if what == "fig6" else "5",
+                               "--profile"], capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"compare_solve {what}: {proc.stderr[-3000:]}")
+        runs = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        require(len(runs) == 4, f"compare_solve {what}: four runs, got {len(runs)}")
+        key = "median_seconds" if what == "fig6" else "median_ms_per_step"
+        turns = [r[key] for r in runs]
+        digests = {r["cost_sha256"] for r in runs}
+        row = {"phase": "versus_parent", "what": what, "order": ["parent", "change", "change",
+                                                                 "parent"],
+               "abba": turns, "parent": (turns[0] + turns[3]) / 2,
+               "change": (turns[1] + turns[2]) / 2, "unit": "s" if what == "fig6" else "ms/step",
+               "spread_parent": abs(turns[0] - turns[3]), "spread_change": abs(turns[1] - turns[2]),
+               "launches_per_step": [r.get("device_launches_per_step") for r in runs],
+               "device_ms_per_step": [r.get("device_ms_per_step") for r in runs],
+               "iterations": [r["iterations"] for r in runs], "same_trajectory": len(digests) == 1,
+               "runs": runs}
+        emit(row)
+        out[what] = row
+        require(len(digests) == 1, f"{what}: the parent's and the change's cost histories "
+                                   f"differ: {[r['iterations'] for r in runs]}")
+    return out
 
 
 PHASE_SECONDS: dict = {}
@@ -2269,9 +2409,12 @@ def main(argv=None) -> int:
                     help="a directory holding earlier bsr_chain.cu (commit f4ca93a), "
                          "batched_lu.cu, chain_solve.cu and strip_sweep.cuh "
                          "(commit 8ee676d), flash_attention.cu and ssd_chunk.cu "
-                         "(commit 14c1039): "
-                         "build those it holds and time them beside the redesigned "
-                         "kernels (prev_ms)")
+                         "(commit 14c1039), tagged.cu and tagged_nbr.cu (commit "
+                         "5b53a6a): build those it holds and time them beside the "
+                         "redesigned kernels (prev_ms)")
+    ap.add_argument("--parent", metavar="TREE",
+                    help="a checkout of the parent commit: time its main paths against "
+                         "this tree's in turns (phase versus_parent)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2334,6 +2477,8 @@ def main(argv=None) -> int:
     require(not SWEEP_FAILURES and not unseen,
             f"sweep members: {SWEEP_FAILURES}; known faults not run: {unseen}")
     phased("sweep_profile", phase_sweep_profile)
+    if args.parent:
+        phased("versus_parent", phase_versus_parent, args.parent)
     # each kernel's launches come from the main path it lies on; lu_solve
     # and propagate_step lie on no solver path: theirs are the oracle phase's
     launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
@@ -2376,6 +2521,7 @@ def main(argv=None) -> int:
                      "library_ms": main_row["library_ms"],
                      "bound_tc_ms": main_row.get("bound_tc_ms"),
                      "prev_ms": main_row.get("prev_ms"),
+                     "prev_launches_per_call": main_row.get("prev_launches_per_call"),
                      "prev_commit": main_row.get("prev_commit"),
                      "shape": main_row["shape"], "cases": rows})
     emit({"kernels": line})

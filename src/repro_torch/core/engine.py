@@ -8,8 +8,8 @@ route (``batched_lu``):
 
   * one batched LU of every (app, stage) system, shared by the traffic
     sweep (trans=1) and the marginal recursion (trans=0);
-  * the blocked node sets, whose tagged-node fixed point is one launch of
-    the tagged kernel;
+  * the blocked node sets, the whole mask in one launch of the dense
+    blocked-set kernel;
   * the projection (eqs. 8-10) over the 12-rung stepsize ladder, whose
     candidates form ONE leading batch dim: one factor launch over
     12·A·K1 matrices and one chain launch over 12·A chains measure every
@@ -17,8 +17,8 @@ route (``batched_lu``):
 
 On the sparse route (an instance with a sparse topology at V >= 128, the
 metro path) nothing is factored: the traffic, marginal and ladder chains
-are one ``bsr_chain`` launch each, and the tagged nodes one ``tagged_nbr``
-launch on the out-neighbor lists.
+are one ``bsr_chain`` launch each, and the blocked sets one launch of the
+neighbor-list kernel.
 
 **Members.**  The instance may carry a leading member dim (a stacked
 family, ``batch.pad_instances``).  Every tensor of the step and of the
@@ -165,28 +165,27 @@ def blocked_sets(inst: Instance, phi: Phi, pdt: torch.Tensor,
       3) j's routing subtree for (a,k) contains an improper link (p,q)
          with dD/dt_q > dD/dt_p ("tagged" nodes).
 
-    ``method="bitset"`` runs category 3 through the tagged kernel
-    (``ops.blocked_tagged``), and upgrades to ``"nbr"`` (bit-equal, O(E)
-    work per round instead of O(V^2 / 32)) where the instance takes the
-    sparse route (``traffic.resolve_solver``);
-    ``"nbr"`` runs it on the padded out-neighbor lists
-    (``ops.blocked_tagged_nbr``); ``"scan"`` is the dense V-round
-    reference.  All give the same least fixed point, bit for bit.
+    ``method="bitset"`` computes the whole mask in one launch of the dense
+    blocked-set kernel (``ops.blocked_set``), and upgrades to ``"nbr"``
+    (bit-equal, O(E) work per round instead of O(V^2 / 32)) where the
+    instance takes the sparse route (``traffic.resolve_solver``); ``"nbr"``
+    is one launch of the neighbor-list kernel (``ops.blocked_set_nbr``);
+    ``"scan"`` is the dense V-round reference in PyTorch.  All give the same
+    mask, bit for bit.
     """
-    route = phi.e > 0.0
-    worse = pdt[..., None, :] > pdt[..., :, None] + BLOCK_EPS     # pdt_q > pdt_p
-    improper = route & worse
     if method == "bitset" and traffic_mod.resolve_solver("auto", inst) == "sparse":
         method = "nbr"
     if method == "nbr":
-        tagged = ops.blocked_tagged_nbr(route, improper, inst.out_nbr,
-                                        inst.out_mask)
-    elif method == "bitset":
-        tagged = ops.blocked_tagged(route, improper)
-    elif method == "scan":
-        tagged = blocked_sets_mod.tagged_scan_dense(route, improper)
-    else:
+        return ops.blocked_set_nbr(inst.adj, phi.e, pdt, inst.out_nbr, inst.out_mask,
+                                   eps=BLOCK_EPS)
+    if method == "bitset":
+        return ops.blocked_set(inst.adj, phi.e, pdt, eps=BLOCK_EPS)
+    if method != "scan":
         raise ValueError(f"unknown blocked-set method {method!r}")
+    route = phi.e > 0.0
+    worse = pdt[..., None, :] > pdt[..., :, None] + BLOCK_EPS     # pdt_q > pdt_p
+    improper = route & worse
+    tagged = blocked_sets_mod.tagged_scan_dense(route, improper)
     return ((~inst.adj[..., None, None, :, :]) | improper | worse
             | tagged[..., None, :])
 

@@ -1,7 +1,10 @@
 """Public wrappers around the kernels, over any leading batch dims.
 
 Port of ``repro.kernels.ops``: the batched-LU, propagation, sparse,
-blocked-set, attention and SSD wrappers.
+blocked-set, attention and SSD wrappers.  The blocked sets are one launch
+a GP step on either route: :func:`blocked_set` (dense route) and
+:func:`blocked_set_nbr` (sparse route) take ``phi_e``, ``pdt`` and ``adj``
+and return the whole blocked mask.
 Leading dims are flattened into the kernel's batch and restored on return,
 so the GP engine hands over ``(A, K1, V, V)`` stacks for the iterate and
 ``(ladder, A, K1, V, V)`` stacks for the stepsize ladder alike, each in ONE
@@ -9,7 +12,7 @@ launch.  Every wrapper is per-member: no wrapper reduces across members.
 
 The factors are unpivoted (identity permutation), so :class:`BatchedLU`
 carries the packed ``lu`` and the per-member ``ok`` flag only.  The sparse
-route (:func:`sparse_chain_solve`, :func:`blocked_tagged_nbr`) factors
+route (:func:`sparse_chain_solve`, :func:`blocked_set_nbr`) factors
 nothing: the instance's block lists take the factors' place.
 """
 
@@ -32,9 +35,9 @@ KERNELS = {
     "lu_factor": _bs.lu_factor,
     "chain_solve": _bs.chain_solve,
     "lu_solve": _bs.lu_solve,
-    "tagged": _bset.tagged,
+    "tagged": _bset.blocked_dense,
     "bsr_chain": _ss.chain_solve_bsr,
-    "tagged_nbr": _ss.tagged_nbr,
+    "tagged_nbr": _ss.blocked_nbr,
     "propagate_step": _cp.propagate_step,
     "flash_attention": _fa.flash_attention_fwd,
     "ssd_chunk": _sc.ssd_chunk_fwd,
@@ -131,25 +134,47 @@ def fused_chain_solve(fact: BatchedLU, base: torch.Tensor, mult: torch.Tensor,
     return x.reshape(base.shape)
 
 
-def blocked_tagged(route: torch.Tensor, improper: torch.Tensor) -> torch.Tensor:
-    """Category-3 "tagged node" flags: route, improper (..., V, V) bool ->
-    tagged (..., V) bool, the least fixed point of
+def _flat(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor):
+    """(adj (M, V, V), phi_e (B, V, V), pdt (B, V)), contiguous: the leading
+    dims flattened, adj's a prefix of phi_e's (a member's adjacency serves
+    its A x K1 row batches)."""
+    V = phi_e.shape[-1]
+    lead = phi_e.shape[:-2]
+    if tuple(adj.shape[:-2]) != tuple(lead[:adj.ndim - 2]) or pdt.shape != lead + (V,):
+        raise ValueError(f"blocked sets: adj {tuple(adj.shape)}, phi_e "
+                         f"{tuple(phi_e.shape)}, pdt {tuple(pdt.shape)} do not agree")
+    return (adj.reshape(-1, V, V).contiguous(), phi_e.reshape(-1, V, V).contiguous(),
+            pdt.reshape(-1, V).contiguous())
 
-        tagged[p] = exists q: route[p, q] and (improper[p, q] or tagged[q]).
 
-    Both matrices are packed into 32-bit words once; one kernel launch
-    iterates every member to its fixed point.
+def blocked_set(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor, *,
+                eps: float) -> torch.Tensor:
+    """The dense route's blocked mask, ``engine.blocked_sets``' result:
+    adj (*M, V, V) bool, phi_e (*M, ..., V, V), pdt (*M, ..., V) ->
+    (*M, ..., V, V) bool,
+
+        ~adj | (pdt_q > pdt_p + eps) | tagged[q],
+
+    ``tagged`` the least fixed point of
+    ``tagged[p] = exists q: route[p, q] and (improper[p, q] or tagged[q])``
+    (``route = phi_e > 0``, ``improper = route & worse``).  One launch of
+    the dense blocked-set kernel covers every row batch.
     """
+    a, pe, pd = _flat(adj, phi_e, pdt)
+    return _bset.blocked_dense(pe, pd, a, eps=eps).reshape(phi_e.shape)
+
+
+def blocked_tagged(route: torch.Tensor, improper: torch.Tensor) -> torch.Tensor:
+    """Category-3 "tagged node" flags alone: route, improper (..., V, V)
+    bool -> tagged (..., V) bool, through the packed rounds (the plain
+    version's).  CPU tensors only: on the card the blocked-set kernel forms
+    route and improper itself (:func:`blocked_set`)."""
+    if route.device.type != "cpu":
+        raise ValueError("blocked_tagged: no kernel takes route/improper; the card's "
+                         "blocked sets go through blocked_set")
     lead, V = route.shape[:-2], route.shape[-1]
-    Vp, _ = _bset.padded_nodes(V)
-
-    def packed(x):
-        bits = _bset.pack_bits(x.reshape(-1, V, V))              # (B, V, W)
-        pad = bits.new_zeros((bits.shape[0], Vp - V, bits.shape[2]))
-        return torch.cat([bits, pad], dim=1).contiguous()        # (B, Vp, W)
-
-    words = _bset.tagged(packed(route), packed(improper))
-    return _bset.unpack_bits(words, V).reshape(lead + (V,))
+    return _bset.tagged_flags_plain(route.reshape(-1, V, V),
+                                    improper.reshape(-1, V, V)).reshape(lead + (V,))
 
 
 # ---------------------------------------------------------------------------
@@ -179,20 +204,31 @@ def sparse_chain_solve(phi_e: torch.Tensor, base: torch.Tensor, mult: torch.Tens
     return x.reshape(base.shape)
 
 
+def blocked_set_nbr(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor,
+                    nbr: torch.Tensor, mask: torch.Tensor, *, eps: float) -> torch.Tensor:
+    """Neighbor-list variant of :func:`blocked_set` (the sparse route): the
+    same shapes plus the out-neighbor lists nbr/mask (V, D) -> the blocked
+    mask, bit-equal to it wherever ``phi_e`` routes only along listed edges
+    (the fixed point reads route and improper on the lists alone), at O(E)
+    work per round.  One launch covers every row batch.
+    """
+    a, pe, pd = _flat(adj, phi_e, pdt)
+    return _ss.blocked_nbr(pe, pd, a, nbr, mask, eps=eps).reshape(phi_e.shape)
+
+
 def blocked_tagged_nbr(route: torch.Tensor, improper: torch.Tensor,
                        nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Neighbor-list variant of :func:`blocked_tagged`: route/improper
     (..., V, V) bool, nbr/mask (V, D) -> tagged (..., V) bool, bit-equal to
-    it (the same monotone fixed point), at O(E) work per round.
-
-    Both matrices are gathered onto the out-neighbor lists once; one kernel
-    launch iterates every member to its fixed point.
-    """
+    it (the same monotone fixed point), both gathered onto the lists.  CPU
+    tensors only, as :func:`blocked_tagged`."""
+    if route.device.type != "cpu":
+        raise ValueError("blocked_tagged_nbr: no kernel takes route/improper; the card's "
+                         "blocked sets go through blocked_set_nbr")
     lead, V = route.shape[:-2], route.shape[-1]
-    idx = nbr.expand(route.reshape(-1, V, V).shape[:1] + nbr.shape)
-    rv = torch.gather(route.reshape(-1, V, V), -1, idx) & mask
-    iv = torch.gather(improper.reshape(-1, V, V), -1, idx)
-    return _ss.tagged_nbr(rv, iv, nbr).reshape(lead + (V,))
+    rv = _ss.gathered(route.reshape(-1, V, V), nbr) & mask
+    iv = _ss.gathered(improper.reshape(-1, V, V), nbr)
+    return _ss.tagged_nbr_plain(rv, iv, nbr).reshape(lead + (V,))
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,12 @@ candidates make it diverge: values past 1e12 (or non-finite) latch at
     ``csrc/bsr_chain.cu`` (one thread-block cluster per member, reading the
     blocks of ``phi_e`` itself) for CUDA tensors, :func:`block_values` and
     :func:`chain_solve_bsr_plain` for CPU tensors;
-  * :func:`tagged_nbr` is the blocked sets' category-3 fixed point on the
-    padded out-neighbor lists: ``csrc/tagged_nbr.cu`` for CUDA tensors,
-    :func:`tagged_nbr_plain` for CPU tensors.
+  * :func:`blocked_nbr` is the blocked mask of the sparse route, its
+    category-3 fixed point on the padded out-neighbor lists:
+    ``csrc/tagged_nbr.cu`` for CUDA tensors (one launch: the route and seed
+    bits read from ``phi_e`` at the listed edges, the fixed point, the
+    mask), :func:`blocked_nbr_plain` for CPU tensors (the V x V
+    composition with the neighbor-list sweep :func:`tagged_nbr_plain`).
 
 One sweep sums in a fixed order that the kernel and the plain version
 share: per 32 x 32 block, the 32 products of a row are rounded one by one
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import blocked_sets as _bset
 
 # Edge length of the partition blocks (re-exported by ``network``); equal to
 # the warp width, so one lane owns one row of a block.
@@ -234,7 +238,7 @@ chain_solve_bsr.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# tagged_nbr: kernel + plain version
+# blocked_nbr: kernel + plain version
 # ---------------------------------------------------------------------------
 
 def tagged_nbr_plain(route_vals: torch.Tensor, improper_vals: torch.Tensor,
@@ -267,42 +271,95 @@ def tagged_nbr_plain(route_vals: torch.Tensor, improper_vals: torch.Tensor,
     return (t, rounds) if with_rounds else t
 
 
-def tagged_nbr(route_vals: torch.Tensor, improper_vals: torch.Tensor,
-               nbr: torch.Tensor, *, with_rounds: bool = False):
-    """Neighbor-list tagged fixed point: (B, V, D) bool x2, nbr (V, D) int64
-    -> (B, V) bool.
+def gathered(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """(B, V, V) -> (B, V, D): ``x[b, p, nbr[p, d]]``."""
+    return torch.gather(x, -1, nbr.expand((x.shape[0],) + nbr.shape))
 
-    CUDA tensors: one launch of ``csrc/tagged_nbr.cu``, one block per
-    member.  CPU tensors: :func:`tagged_nbr_plain`.
+
+def blocked_nbr_plain(phi_e: torch.Tensor, pdt: torch.Tensor, adj: torch.Tensor,
+                      nbr: torch.Tensor, mask: torch.Tensor, *, eps: float,
+                      with_rounds: bool = False):
+    """The sparse route's blocked mask the way the port computed it before
+    the kernel: phi_e (B, V, V), pdt (B, V), adj (M, V, V) with M dividing
+    B, the out-neighbor lists nbr/mask (V, D) -> (B, V, V) bool,
+
+        ~adj | improper | worse | tagged[q],
+
+    ``tagged`` by :func:`tagged_nbr_plain` on route and improper gathered
+    onto the lists.  ``with_rounds=True`` also returns the (B, V) tagged
+    flags and the (B,) int32 round counts.
     """
-    if route_vals.device.type == "cpu":
-        return tagged_nbr_plain(route_vals, improper_vals, nbr,
-                                with_rounds=with_rounds)
-    _check_cuda(route_vals, "tagged_nbr route_vals", torch.bool, 3)
-    _check_cuda(improper_vals, "tagged_nbr improper_vals", torch.bool, 3)
-    _check_cuda(nbr, "tagged_nbr nbr", torch.int64, 2)
-    B, V, D = route_vals.shape
-    if improper_vals.shape != (B, V, D) or nbr.shape != (V, D):
-        raise ValueError(f"tagged_nbr: shapes {tuple(route_vals.shape)}, "
-                         f"{tuple(improper_vals.shape)}, nbr {tuple(nbr.shape)} "
-                         f"do not agree")
-    if any(t.device != route_vals.device for t in (improper_vals, nbr)):
-        raise ValueError("tagged_nbr: all inputs must be on one device")
-    smem = 4 * V * (-(-D // 32)) + 3 * V
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"tagged_nbr: V={V}, D={D} needs {smem} B of shared "
-                         f"memory, above {_build.SMEM_LIMIT} B")
-    out = torch.empty((B, V), dtype=torch.bool, device=route_vals.device)
-    rounds = torch.empty((B,), dtype=torch.int32, device=route_vals.device)
+    B, V = pdt.shape
+    M = adj.shape[0]
+    route = phi_e > 0.0
+    worse = pdt[:, None, :] > pdt[:, :, None] + eps              # pdt_q > pdt_p
+    improper = route & worse
+    tagged, rounds = tagged_nbr_plain(gathered(route, nbr) & mask, gathered(improper, nbr),
+                                      nbr, with_rounds=True)
+    blocked = ((~adj[:, None]) | (improper | worse | tagged[:, None, :]).reshape(
+        M, B // M, V, V)).reshape(B, V, V)
+    return (blocked, tagged, rounds) if with_rounds else blocked
+
+
+def blocked_nbr_plan(V: int, D: int) -> dict:
+    """How :func:`blocked_nbr` launches at V nodes and pad width D:
+    ``cluster`` CTAs a row batch (``blocked_sets.cluster_for``), ``words``
+    bitset words (32 rows each) a CTA, and the shared memory a CTA takes
+    (pdt padded to 16 bytes, route bits and neighbor lists of its rows, the
+    seed, the two bitsets, two stamps)."""
+    W = -(-V // _bset.WORD)
+    c = _bset.cluster_for(V)
+    wr = -(-W // c)
+    plan = {"cluster": c, "words": wr, "threads": _bset.TAGGED_THREADS,
+            "smem_bytes": 4 * (-(-V // 4) * 4 + 32 * wr * (-(-D // 32) + D) + wr + 2 * W + 2)}
+    if plan["smem_bytes"] > _build.SMEM_LIMIT:
+        raise ValueError(f"blocked_nbr: V={V}, D={D} needs {plan['smem_bytes']} B of "
+                         f"shared memory per CTA, above {_build.SMEM_LIMIT} B")
+    return plan
+
+
+def blocked_nbr(phi_e: torch.Tensor, pdt: torch.Tensor, adj: torch.Tensor,
+                nbr: torch.Tensor, mask: torch.Tensor, *, eps: float,
+                with_rounds: bool = False):
+    """The sparse route's blocked mask: phi_e (B, V, V) float32, pdt (B, V)
+    float32, adj (M, V, V) bool, nbr (V, D) int64, mask (V, D) bool ->
+    (B, V, V) bool (and the tagged flags and round counts with
+    ``with_rounds``), as :func:`blocked_nbr_plain`.
+
+    CUDA tensors: one launch of ``csrc/tagged_nbr.cu`` (the plan of
+    :func:`blocked_nbr_plan`).  CPU tensors: :func:`blocked_nbr_plain`.
+    """
+    if phi_e.device.type == "cpu":
+        return blocked_nbr_plain(phi_e, pdt, adj, nbr, mask, eps=eps,
+                                 with_rounds=with_rounds)
+    B, V, per = _bset.check_inputs("blocked_nbr", phi_e, pdt, adj)
+    _check_cuda(nbr, "blocked_nbr nbr", torch.int64, 2)
+    _check_cuda(mask, "blocked_nbr mask", torch.bool, 2)
+    D = nbr.shape[1]
+    if nbr.shape[0] != V or mask.shape != nbr.shape or D < 1:
+        raise ValueError(f"blocked_nbr: nbr {tuple(nbr.shape)}, mask {tuple(mask.shape)} "
+                         f"do not fit V={V}")
+    if nbr.device != phi_e.device or mask.device != phi_e.device:
+        raise ValueError("blocked_nbr: all inputs must be on one device")
+    plan = blocked_nbr_plan(V, D)
+    out = torch.empty((B, V, V), dtype=torch.bool, device=phi_e.device)
+    tagged = (torch.empty((B, V), dtype=torch.bool, device=phi_e.device)
+              if with_rounds else None)
+    rounds = (torch.empty((B,), dtype=torch.int32, device=phi_e.device)
+              if with_rounds else None)
+    vec = int(V % 4 == 0 and out.data_ptr() % 16 == 0 and adj.data_ptr() % 16 == 0)
     fn = _build.function("tagged_nbr", "repro_tagged_nbr",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    with torch.cuda.device(route_vals.device):
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(phi_e.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(route_vals.data_ptr(), improper_vals.data_ptr(), nbr.data_ptr(),
-                out.data_ptr(), rounds.data_ptr(), B, V, D, stream)
-    _build.check("tagged_nbr", rc, "tagged_nbr")
-    tagged_nbr.launches += 1
-    return (out, rounds) if with_rounds else out
+        rc = fn(phi_e.data_ptr(), pdt.data_ptr(), adj.data_ptr(), nbr.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), tagged.data_ptr() if with_rounds else None,
+                rounds.data_ptr() if with_rounds else None, B, V, D, per, plan["cluster"],
+                plan["words"], eps, vec, stream)
+    _build.check("tagged_nbr", rc, "blocked_nbr")
+    blocked_nbr.launches += 1
+    return (out, tagged, rounds) if with_rounds else out
 
 
-tagged_nbr.launches = 0
+blocked_nbr.launches = 0

@@ -37,6 +37,93 @@ def random_bits(rng, B, V, density):
     return route, improper
 
 
+# The node counts the blocked-set kernels are held at (card tests): rows
+# shorter than a 16-byte chunk of the mask (4, 8, 12; a chunk spans up to
+# four rows at V = 4), word and cluster boundaries (32, 128 / 129: a second
+# CTA), the dense route's scale ladder and lu_factor's limit.
+BLOCKED_SET_V = (1, 4, 8, 12, 16, 31, 32, 33, 100, 128, 240, 241, 300, 600, 1000, 1614)
+BLOCK_EPS = 1e-7      # engine.BLOCK_EPS
+
+
+def rounding_pair(rng):
+    """(x, lo, hi) float32: ``x + 1e-7`` rounds to ``lo`` as one float32 add
+    and to ``hi`` through float64, or the other way round; ``lo < hi``."""
+    while True:
+        x = np.float32(rng.uniform(0.0, 1e-5))
+        f32 = np.float32(x + np.float32(BLOCK_EPS))
+        f64 = np.float32(np.float64(x) + BLOCK_EPS)
+        if f32 != f64:
+            return x, min(f32, f64), max(f32, f64)
+
+
+def blocked_set_inputs(seed, V, members=1, per=3, special=False):
+    """(phi (B, V, V) float32, pdt (B, V) float32, adj (M, V, V) bool) with
+    B = members * per, row batch b of member b // per, as the GP step hands
+    them to the blocked sets.
+
+    Each member has a random symmetric adjacency; each row batch routes
+    along a random DAG inside it (phi in 0.05..1 on 70% of the forward
+    edges of a hidden order), and its pdt falls along that order (1e-6 a
+    rank) but for 2% of the nodes, drawn at random: their links are the
+    improper ones, so tags propagate upstream.  ``special`` adds NaN, +inf,
+    -inf and -0.0 entries to phi (on adjacency entries, routed or not) and
+    to pdt, and pdt pairs on routed links whose threshold ``pdt_p + 1e-7``
+    rounds otherwise in float32 than in float64 (``rounding_pair``), with
+    pdt_q the higher of the two roundings: there the two rules disagree.
+    """
+    rng = np.random.default_rng(seed)
+    B = members * per
+    dens = min(0.5, 4.0 / max(V, 1))
+    adj = np.zeros((members, V, V), dtype=bool)
+    phi = np.zeros((B, V, V), dtype=np.float32)
+    pdt = np.zeros((B, V), dtype=np.float32)
+    for m in range(members):
+        a = rng.random((V, V)) < dens
+        a = (a | a.T) & ~np.eye(V, dtype=bool)
+        adj[m] = a
+        for b in range(m * per, (m + 1) * per):
+            rank = rng.permutation(V)
+            route = a & (rank[:, None] < rank[None, :]) & (rng.random((V, V)) < 0.7)
+            phi[b][route] = rng.uniform(0.05, 1.0, int(route.sum()))
+            p = (V - rank) * 1e-6
+            out = rng.random(V) < 0.02
+            p[out] = rng.uniform(0.0, V * 1e-6, int(out.sum()))
+            pdt[b] = p
+            if not special:
+                continue
+            on = np.argwhere(a)
+            for val in (np.nan, np.inf, -np.inf, -0.0, np.nan, np.inf):
+                if len(on):
+                    i, j = on[rng.integers(len(on))]
+                    phi[b, i, j] = val
+            for val in (np.nan, np.inf, -np.inf, -0.0, 0.0):
+                pdt[b, rng.integers(V)] = val
+            for i, j in np.argwhere(route)[:3]:
+                x, _, hi = rounding_pair(rng)
+                pdt[b, i], pdt[b, j] = x, hi
+    return phi, pdt, adj
+
+
+def three_term_mask(phi, pdt, adj):
+    """The blocked-set kernels' contract in numpy (float32 threshold, one
+    add): ``~adj | worse | tagged[q]``, tagged the least fixed point of
+    ``tagged[p] = OR_q route[p, q] & (improper[p, q] | tagged[q])``."""
+    B, V = pdt.shape
+    per = B // adj.shape[0]
+    route = phi > 0
+    thr = (pdt + np.float32(BLOCK_EPS)).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        worse = pdt[:, None, :] > thr[:, :, None]
+    improper = route & worse
+    tagged = np.zeros((B, V), dtype=bool)
+    while True:
+        nxt = (route & (improper | tagged[:, None, :])).any(-1)
+        if np.array_equal(nxt, tagged):
+            break
+        tagged = nxt
+    return ~np.repeat(adj, per, axis=0) | worse | tagged[:, None, :], tagged
+
+
 def stall_stop(costs, patience=40, max_iters=400):
     """Replay the solve loop's stall latch on a cost history.
 

@@ -10,7 +10,7 @@ JAX, so it runs on a machine with PyTorch and CUDA alone:
 built from ``src/repro_torch/kernels/csrc`` with ``nvcc`` at first use.
 Tolerances: 1e-5 relative for the dense float32 kernels (they sum in
 another order than the plain versions and fuse multiply-adds); bit-exact
-for the tagged bitsets, the neighbor-list tagged sweep and the sweep
+for the blocked-set kernels (mask, tagged flags, round counts) and the sweep
 counts of the blocked chain solve, whose kernel and plain version share
 one summation order (its values are held to 1e-5 with the same +inf
 entries, and their largest difference is printed).  The attention and SSD
@@ -23,6 +23,7 @@ the one-by-one solves on the card: final costs within 1e-4 (the
 reference's own bound, ``tests/test_blocked_sets.py``).
 """
 
+import dataclasses
 import json
 import os
 
@@ -38,9 +39,10 @@ from repro_torch.kernels import chain_propagate as cp  # noqa: E402
 from repro_torch.core import engine, marginals, traffic  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sparse_solve as ss  # noqa: E402
-from _torch_cases import (bsr_digest_cases, case_id, check_bsr_digest,  # noqa: E402
-                          check_dense_digest, dense_digest_cases, dense_scale_cases,
-                          dense_scale_digest_cases, random_bits, stage_mats, with_loops)
+from _torch_cases import (BLOCKED_SET_V, blocked_set_inputs, bsr_digest_cases,  # noqa: E402
+                          case_id, check_bsr_digest, check_dense_digest, dense_digest_cases,
+                          dense_scale_cases, dense_scale_digest_cases, stage_mats,
+                          three_term_mask, with_loops)
 
 METRO_GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                             "torch_ref_metro_sw1000.npz")
@@ -170,11 +172,14 @@ def test_launch_plans_match_the_kernels(cuda):
         plan = bs.lu_solve_plan(V)
         variant = ("shared", "strips").index(plan["variant"])
         assert c_int("lu_solve", "repro_lu_solve_smem_bytes", V, variant) == plan["smem_bytes"]
-    for V in (32, 100, 960, 961, 1000):
-        Vp, W = bset.padded_nodes(V)
-        plan = bset.tagged_plan(Vp, W)
-        variant = ("shared", "global").index(plan["variant"])
-        assert c_int("tagged", "repro_tagged_smem_bytes", Vp, W, variant) == plan["smem_bytes"]
+    for V in BLOCKED_SET_V + (129, 3584):
+        plan = bset.blocked_dense_plan(V)
+        assert (c_int("tagged", "repro_tagged_dense_smem_bytes", V, plan["words"])
+                == plan["smem_bytes"])
+        for D in (1, 10, 33):
+            plan = ss.blocked_nbr_plan(V, D)
+            assert (c_int("tagged_nbr", "repro_tagged_nbr_smem_bytes", V, D, plan["words"])
+                    == plan["smem_bytes"])
     fn = _build.function("batched_lu", "repro_lu_factor",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     assert fn(None, None, None, 0, 129, 0, None) != 0
@@ -193,23 +198,77 @@ def test_chain_clamp_keeps_nan_on_card(cuda):
     assert torch.isnan(x[2, 0]).all() and x[2, 1].item() == 1.0
 
 
-@pytest.mark.parametrize("V,density", [(45, 0.05), (100, 0.03), (100, 0.3),
-                                       (200, 0.01)])
-def test_tagged_kernel_bit_equal_to_plain(cuda, V, density):
-    rng = np.random.default_rng(V)
-    route, improper = random_bits(rng, 16, V, density)
-    Vp, W = bset.padded_nodes(V)
+def _on(device, *arrays):
+    return [torch.from_numpy(a).to(device) for a in arrays]
 
-    def packed(x):
-        bits = bset.pack_bits(torch.from_numpy(x).to(cuda))
-        return torch.cat([bits, bits.new_zeros((16, Vp - V, W))], dim=1).contiguous()
 
-    r, i = packed(route), packed(improper)
-    got = bset.tagged(r, i)
-    want = bset.tagged_plain(r, i)
-    assert torch.equal(got, want)
-    dense = bset.tagged_scan_dense(torch.from_numpy(route), torch.from_numpy(improper))
-    assert torch.equal(bset.unpack_bits(got, V).cpu(), dense)
+@pytest.mark.parametrize("special", [False, True], ids=["plain", "special"])
+@pytest.mark.parametrize("V", BLOCKED_SET_V)
+def test_tagged_kernel_bit_equal_to_plain(cuda, V, special):
+    """The dense blocked-set kernel (its cluster plan at V) writes the mask
+    and tagged flags of its plain version, on the card and on the CPU, and
+    of the numpy contract: two members of three row batches, NaN, +-inf and
+    -0.0 in phi and pdt with ``special``."""
+    phi, pdt, adj = blocked_set_inputs(V + 11 * special, V, members=2, special=special)
+    got, tagged = bset.blocked_dense(*_on(cuda, phi, pdt, adj), eps=engine.BLOCK_EPS,
+                                     with_tagged=True)
+    want, want_tagged = bset.blocked_dense_plain(*_on(cuda, phi, pdt, adj),
+                                                 eps=engine.BLOCK_EPS, with_tagged=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(tagged, want_tagged)
+    cpu, cpu_tagged = bset.blocked_dense(*_on("cpu", phi, pdt, adj), eps=engine.BLOCK_EPS,
+                                         with_tagged=True)
+    assert torch.equal(got.cpu(), cpu) and torch.equal(tagged.cpu(), cpu_tagged)
+    three, three_tagged = three_term_mask(phi, pdt, adj)
+    assert np.array_equal(got.cpu().numpy(), three)
+    assert np.array_equal(tagged.cpu().numpy(), three_tagged)
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["plain", "special"])
+@pytest.mark.parametrize("V", BLOCKED_SET_V)
+def test_tagged_nbr_kernel_at_node_counts(cuda, V, special):
+    """The neighbor-list blocked-set kernel against its plain version (mask,
+    tagged flags, round counts) on the lists of a seeded adjacency."""
+    phi, pdt, adj = blocked_set_inputs(V + 13 * special, V, members=1, per=4,
+                                       special=special)
+    nbr, mask, _, _ = network.sparse_neighbors(adj[0])
+    nbr, mask = _on(cuda, nbr.astype(np.int64), mask)
+    t = _on(cuda, phi, pdt, adj)
+    got = ss.blocked_nbr(*t, nbr, mask, eps=engine.BLOCK_EPS, with_rounds=True)
+    want = ss.blocked_nbr_plain(*t, nbr, mask, eps=engine.BLOCK_EPS, with_rounds=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    three, _ = three_term_mask(phi, pdt, adj)
+    assert np.array_equal(got[0].cpu().numpy(), three)
+
+
+def test_blocked_sets_kernels_on_a_batched_sweep(cuda):
+    """``engine.blocked_sets`` on the Fig. 5 sw-queue group and the Fig. 6
+    family, padded and stacked (one adjacency a member), at a 3-iteration
+    iterate under ``init_phi``'s marginals: the card's mask equals the
+    CPU's (plain version) and the scan's, in one launch."""
+    from repro_torch.core import batch, scenarios
+
+    for fam in (scenarios.expand("fig6-congestion"),
+                [sc for sc in scenarios.expand("fig5") if sc.label == "sw-queue"]):
+        insts = [sc.instance for sc in fam]
+        binst = batch.pad_instances(insts)
+        phis = [gp.solve(i, alpha=0.1, max_iters=3, patience=10**6, tol=0.0).phi
+                for i in insts]
+        bphi = batch.pad_phis(phis, insts)
+        pdt = marginals.marginals(binst, batch.pad_phis([gp.init_phi(i) for i in insts],
+                                                        insts)).pdt
+        ops.reset_launch_counts()
+        got = engine.blocked_sets(binst, bphi, pdt)
+        assert ops.launch_counts()["tagged"] == 1
+        assert torch.equal(got, engine.blocked_sets(binst, bphi, pdt, method="scan"))
+        cpu = dataclasses.replace(binst, **{
+            f.name: getattr(binst, f.name).cpu() for f in dataclasses.fields(binst)
+            if torch.is_tensor(getattr(binst, f.name))})
+        want = engine.blocked_sets(cpu, bphi._replace(e=bphi.e.cpu(), c=bphi.c.cpu()),
+                                   pdt.cpu())
+        assert torch.equal(got.cpu(), want)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -224,9 +283,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         bs.chain_solve(lu, torch.zeros((1, 2, 7), device=cuda),
                        torch.zeros((1, 2, 7), device=cuda))
+    adj = torch.ones((2, 8, 8), dtype=torch.bool, device=cuda)
+    pdt = torch.zeros((3, 8), device=cuda)
+    with pytest.raises(ValueError):                  # 3 row batches, 2 members
+        bset.blocked_dense(m.repeat(2, 1, 1)[:3].contiguous(), pdt, adj, eps=1e-7)
     with pytest.raises(ValueError):
-        bset.tagged(torch.zeros((1, 32, 1), device=cuda),
-                    torch.zeros((1, 32, 1), device=cuda))
+        bset.blocked_dense(m.double(), pdt[:2], adj, eps=1e-7)
+    with pytest.raises(ValueError):                  # no kernel takes route/improper
+        ops.blocked_tagged(adj, adj)
 
 
 @pytest.mark.parametrize("case", dense_scale_cases(), ids=case_id)
@@ -270,9 +334,9 @@ def test_lu_factor_global_variant_bit_equal_to_shared(cuda, V):
 @pytest.mark.parametrize("V", [300, 1000])
 def test_large_v_lu_solve_and_tagged_match_plain(cuda, V):
     """``lu_solve`` by strips (trans 0 and 1) within 1e-5 of its plain
-    version, a singular member's inf/nan kept in it; the tagged sweep
-    (from global memory at V=1000) bit-equal to its plain version and to
-    the dense sweep."""
+    version, a singular member's inf/nan kept in it; the dense blocked-set
+    kernel (a cluster of 8 or 16 CTAs a row batch) bit-equal to its plain
+    version, its tagged flags to the dense sweep."""
     rng = np.random.default_rng(V + 5)
     mats = stage_mats(rng, 4, V, loopy=(2,))
     lu = bs.lu_factor_plain(torch.from_numpy(mats).to(cuda)).contiguous()
@@ -284,19 +348,16 @@ def test_large_v_lu_solve_and_tagged_match_plain(cuda, V):
         want = bs.lu_solve_plain(lu, rhs, trans=trans)
         assert _rel(got[ok], want[ok]) <= 1e-5
         assert not torch.isfinite(got[2]).all()
-    route, improper = random_bits(rng, 4, V, 3.0 / V)
-    Vp, W = bset.padded_nodes(V)
-
-    def packed(x):
-        bits = bset.pack_bits(torch.from_numpy(x).to(cuda))
-        return torch.cat([bits, bits.new_zeros((4, Vp - V, W))], dim=1).contiguous()
-
-    r, i = packed(route), packed(improper)
-    got = bset.tagged(r, i)
-    assert torch.equal(got, bset.tagged_plain(r, i))
-    dense = bset.tagged_scan_dense(torch.from_numpy(route), torch.from_numpy(improper))
-    assert torch.equal(bset.unpack_bits(got, V).cpu(), dense)
-    assert dense.any()
+    phi, pdt, adj = blocked_set_inputs(V + 5, V, members=2, per=2, special=True)
+    t = _on(cuda, phi, pdt, adj)
+    got, tagged = bset.blocked_dense(*t, eps=engine.BLOCK_EPS, with_tagged=True)
+    assert bset.blocked_dense_plan(V)["cluster"] >= 8
+    want, want_tagged = bset.blocked_dense_plain(*t, eps=engine.BLOCK_EPS, with_tagged=True)
+    assert torch.equal(got, want) and torch.equal(tagged, want_tagged)
+    route = t[0] > 0
+    worse = t[1][:, None, :] > t[1][:, :, None] + engine.BLOCK_EPS
+    assert torch.equal(tagged, bset.tagged_scan_dense(route, route & worse))
+    assert tagged.any()
 
 
 def test_solve_on_card_matches_cpu(cuda):
@@ -428,25 +489,50 @@ def test_bsr_chain_more_block_rows_than_warps(cuda, NB, BD):
 
 
 def test_tagged_nbr_kernel_bit_equal_to_plain(cuda):
+    """The neighbor-list blocked-set kernel on congested Table II iterates
+    and metro-sw V=1000, under fresh and stale marginals: mask, tagged flags
+    and round counts of its plain version, the flags the dense sweep's, the
+    mask the dense kernel's (phi routes along listed edges only)."""
     for label, inst, phi in _sparse_cases(cuda):
         stale = marginals.marginals(inst, gp.init_phi(inst)).pdt
         fresh = marginals.marginals(inst, phi).pdt
+        V = inst.V
+        pe = phi.e.reshape(-1, V, V).contiguous()
         for pdt in (fresh, stale):
-            route = phi.e > 0.0
-            improper = route & (pdt[:, :, None, :] > pdt[:, :, :, None] + engine.BLOCK_EPS)
-            V = inst.V
-            r2, i2 = route.reshape(-1, V, V), improper.reshape(-1, V, V)
-            idx = inst.out_nbr.expand((r2.shape[0],) + inst.out_nbr.shape)
-            rv = torch.gather(r2, -1, idx) & inst.out_mask
-            iv = torch.gather(i2, -1, idx)
-            got, rounds = ss.tagged_nbr(rv, iv, inst.out_nbr, with_rounds=True)
-            want, want_rounds = ss.tagged_nbr_plain(rv, iv, inst.out_nbr,
-                                                    with_rounds=True)
-            assert torch.equal(got, want), label
-            assert torch.equal(rounds, want_rounds), label
-            assert torch.equal(got, bset.tagged_scan_dense(r2, i2)), label
-            if V <= 200:   # the bitset kernel holds (Vp, W) words in shared memory
-                assert torch.equal(got, ops.blocked_tagged(r2, i2)), label
+            pd = pdt.reshape(-1, V).contiguous()
+            args = (pe, pd, inst.adj[None], inst.out_nbr, inst.out_mask)
+            got = ss.blocked_nbr(*args, eps=engine.BLOCK_EPS, with_rounds=True)
+            want = ss.blocked_nbr_plain(*args, eps=engine.BLOCK_EPS, with_rounds=True)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), label
+            route = pe > 0
+            worse = pd[:, None, :] > pd[:, :, None] + engine.BLOCK_EPS
+            assert torch.equal(got[1], bset.tagged_scan_dense(route, route & worse)), label
+            assert torch.equal(got[0], bset.blocked_dense(pe, pd, inst.adj[None],
+                                                          eps=engine.BLOCK_EPS)), label
+
+
+@pytest.mark.parametrize("route", ["dense", "sparse"])
+def test_blocked_sets_one_launch_on_card(cuda, route):
+    """``engine.blocked_sets`` on the card: one kernel in the profiler's
+    trace, the route's blocked-set kernel, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inst = (network.table_ii_instance("sw-queue") if route == "dense"
+            else network.metro_instance("sw", 1000))
+    phi = gp.init_phi(inst)
+    pdt = marginals.marginals(inst, phi).pdt
+    engine.blocked_sets(inst, phi, pdt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            engine.blocked_sets(inst, phi, pdt)
+        torch.cuda.synchronize()
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+    symbol = "tagged_dense_kernel" if route == "dense" else "tagged_nbr_mask_kernel"
+    assert len(kernels) == 1 and symbol in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 3
 
 
 def test_metro_solve_on_card(cuda):
@@ -475,9 +561,18 @@ def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ss.chain_solve_bsr(torch.zeros((1, 1, 40, 40), device=cuda), nbr, mask,
                            torch.zeros((1, 1, 40), device=cuda),
                            torch.zeros((1, 1, 40), device=cuda))
-    rv = torch.zeros((2, 5, 3), dtype=torch.bool, device=cuda)
+    phi = torch.zeros((2, 5, 5), device=cuda)
+    pdt = torch.zeros((2, 5), device=cuda)
+    adj = torch.ones((1, 5, 5), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):                  # lists of another node count
+        ss.blocked_nbr(phi, pdt, adj, torch.zeros((4, 2), dtype=torch.int64, device=cuda),
+                       torch.ones((4, 2), dtype=torch.bool, device=cuda), eps=1e-7)
     with pytest.raises(ValueError):
-        ss.tagged_nbr(rv, rv, torch.zeros((5, 2), dtype=torch.int64, device=cuda))
+        ss.blocked_nbr(phi, pdt, adj, torch.zeros((5, 2), dtype=torch.int32, device=cuda),
+                       torch.ones((5, 2), dtype=torch.bool, device=cuda), eps=1e-7)
+    with pytest.raises(ValueError):                  # no kernel takes route/improper
+        ops.blocked_tagged_nbr(adj, adj, torch.zeros((5, 2), dtype=torch.int64, device=cuda),
+                               torch.ones((5, 2), dtype=torch.bool, device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """The dense route above the shared-memory limits, on the CPU side.
 
-The dense kernels keep a stage's V x V factor (or the tagged sweep's word
-matrices) in one block's shared memory up to V = 239-241 (Vp = 960 for the
-bitsets); above that each wrapper launches a variant that reads them from
-global memory (``lu_factor`` by 32-column panels and ``chain_solve`` by
-32-row strips, each on a cluster of CTAs, ``lu_solve`` by strips in one
-block, ``tagged`` word by word).  Which variant runs, its cluster size and
+The dense kernels keep a stage's V x V factor in one block's shared memory
+up to V = 239-241; above that each wrapper launches a variant that reads it
+from global memory (``lu_factor`` by 32-column panels and ``chain_solve``
+by 32-row strips, each on a cluster of CTAs, ``lu_solve`` by strips in one
+block).  The blocked-set kernels take a cluster of CTAs a row batch above
+V = 128, a CTA for each 32-row word of the bitset.  Which variant runs, its cluster size and
 the shared memory it takes are host logic, held here at V = 100 to 2049
 (the card test ``test_launch_plans_match_the_kernels`` holds the bytes and
 cluster sizes to the CUDA sources); a plan raises only where even the
@@ -31,15 +31,16 @@ from repro_torch.kernels import batched_solve as bs  # noqa: E402
 from repro_torch.kernels import blocked_sets as bset  # noqa: E402
 
 LIMIT = 232_448
-# V: (lu_factor, chain_solve, lu_solve, tagged) variants
+# V: (lu_factor, chain_solve, lu_solve) variants and the blocked-set
+# kernel's CTAs a row batch
 VARIANTS = {
-    100: ("registers", "shared", "shared", "shared"),
-    239: ("shared", "shared", "shared", "shared"),
-    240: ("shared", "clusters", "shared", "shared"),
-    241: ("shared", "clusters", "strips", "shared"),
-    300: ("clusters", "clusters", "strips", "shared"),
-    600: ("clusters", "clusters", "strips", "shared"),
-    1000: ("clusters", "clusters", "strips", "global"),
+    100: ("registers", "shared", "shared", 1),
+    239: ("shared", "shared", "shared", 8),
+    240: ("shared", "clusters", "shared", 8),
+    241: ("shared", "clusters", "strips", 8),
+    300: ("clusters", "clusters", "strips", 16),
+    600: ("clusters", "clusters", "strips", 16),
+    1000: ("clusters", "clusters", "strips", 16),
 }
 # V: (lu_factor's, chain_solve's) CTAs a cluster
 CLUSTERS = {240: (None, 2), 241: (None, 2), 256: (2, 2), 257: (2, 2), 300: (2, 2),
@@ -52,7 +53,7 @@ LU_UPDATE_BYTES = 4 * (128 * 36 + 16 * 32 * 32 + 32 * 33)
 
 @pytest.mark.parametrize("V", sorted(VARIANTS))
 def test_dense_launch_plans_by_node_count(V):
-    lu_v, chain_v, solve_v, tag_v = VARIANTS[V]
+    lu_v, chain_v, solve_v, tag_c = VARIANTS[V]
     tile = 4 * V * (V | 1)
     plan = bs.lu_factor_plan(V)
     assert plan["variant"] == lu_v and plan["threads"] == 256
@@ -70,12 +71,15 @@ def test_dense_launch_plans_by_node_count(V):
     assert plan["variant"] == solve_v
     assert plan["smem_bytes"] == (4 * (V * (V | 1) + V) if solve_v == "shared"
                                   else 4 * (V + 32 * 33))
-    Vp, W = bset.padded_nodes(V)
-    plan = bset.tagged_plan(Vp, W)
-    assert plan["variant"] == tag_v
-    assert plan["smem_bytes"] == (4 * (2 * Vp * W + 2 * W) if tag_v == "shared" else 8 * W)
+    _, W = bset.padded_nodes(V)
+    plan = bset.blocked_dense_plan(V)
+    wr = -(-W // tag_c)
+    assert plan == {"cluster": tag_c, "words": wr, "threads": 512,
+                    "smem_bytes": 4 * (-(-V // 4) * 4 + 2 * W * 32 * wr + wr + 2 * W + 2)}
+    # one CTA up to V = 128, else a CTA a bitset word, at most 16
+    assert (tag_c == 1) == (V <= 128) and (V <= 128 or tag_c * 32 >= V or tag_c == 16)
     for p in (bs.lu_factor_plan(V), bs.chain_solve_plan(V), bs.lu_solve_plan(V),
-              bset.tagged_plan(Vp, W)):
+              bset.blocked_dense_plan(V)):
         assert p["smem_bytes"] <= LIMIT
 
 
@@ -110,12 +114,12 @@ def test_each_variant_takes_over_where_the_last_stops_fitting():
     assert bs.lu_factor_plan(241)["smem_bytes"] <= LIMIT < 4 * 242 * 243
     assert bs.chain_solve_plan(239)["smem_bytes"] <= LIMIT < 4 * (64 + 240 * 241 + 480)
     assert bs.lu_solve_plan(240)["smem_bytes"] <= LIMIT < 4 * (241 * 241 + 241)
-    assert bset.tagged_plan(960, 30)["variant"] == "shared"
-    assert bset.tagged_plan(992, 31)["variant"] == "global"
+    assert bset.blocked_dense_plan(128)["cluster"] == 1
+    assert bset.blocked_dense_plan(129)["cluster"] == 8
 
 
 @pytest.mark.parametrize("fn,V", [(bs.lu_factor_plan, 1615), (bs.chain_solve_plan, 28_529),
-                                  (bs.lu_solve_plan, 57_057)])
+                                  (bs.lu_solve_plan, 57_057), (bset.blocked_dense_plan, 3585)])
 def test_plans_raise_only_where_the_global_layout_does_not_fit(fn, V):
     fn(V - 1)
     with pytest.raises(ValueError, match="shared memory"):

@@ -161,7 +161,7 @@ def test_tagged_bit_exact(case):
     t_r = torch.from_numpy(np.array(r_bits).view(np.int32))
     t_i = torch.from_numpy(np.array(i_bits).view(np.int32))
     assert torch.equal(t_r[:, :V], tbset.pack_bits(torch.from_numpy(route)))
-    words = tbset.tagged(t_r, t_i).numpy()
+    words = tbset.tagged_plain(t_r, t_i).numpy()
     want_words = np.asarray(jbset.pack_bits(jnp.asarray(want))).view(np.int32)
     assert np.array_equal(words, want_words)
     assert np.array_equal(tbset.unpack_bits(torch.from_numpy(words), V).numpy(),

@@ -293,20 +293,20 @@ def _tagged_inputs(name, point):
     pdt = tmg.marginals(port, pdt_phi).pdt
     route = phi.e > 0.0
     worse = pdt[:, :, None, :] > pdt[:, :, :, None] + teng.BLOCK_EPS
-    return port, route, route & worse
+    return port, route, route & worse, phi.e, pdt
 
 
 @pytest.mark.parametrize("point", ["init", "mid10", "stale"])
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_tagged_nbr_plain_bit_equal(name, point):
-    port, route, improper = _tagged_inputs(name, point)
+    port, route, improper, phi_e, pdt = _tagged_inputs(name, point)
     V = port.V
     r2, i2 = route.reshape(-1, V, V), improper.reshape(-1, V, V)
     nbr, mask = port.out_nbr, port.out_mask
     idx = nbr.expand((r2.shape[0],) + nbr.shape)
     rv = torch.gather(r2, -1, idx) & mask
     iv = torch.gather(i2, -1, idx)
-    got, rounds = tss.tagged_nbr(rv, iv, nbr, with_rounds=True)
+    got, rounds = tss.tagged_nbr_plain(rv, iv, nbr, with_rounds=True)
     want, want_rounds = jss.tagged_nbr(jnp.asarray(rv.numpy()), jnp.asarray(iv.numpy()),
                                        jnp.asarray(nbr.numpy()), with_rounds=True)
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -316,6 +316,14 @@ def test_tagged_nbr_plain_bit_equal(name, point):
     assert torch.equal(got, tops.blocked_tagged(r2, i2))
     assert torch.equal(tops.blocked_tagged_nbr(route, improper, nbr, mask),
                        got.reshape(route.shape[:-1]))
+    # the sparse kernel's plain version: the same flags and round counts
+    # inside the whole blocked mask
+    phi_e, pdt = phi_e.reshape(-1, V, V), pdt.reshape(-1, V)
+    mask_b, flags, rounds_b = tss.blocked_nbr(phi_e, pdt, port.adj[None], nbr, mask,
+                                              eps=teng.BLOCK_EPS, with_rounds=True)
+    assert torch.equal(flags, got) and torch.equal(rounds_b, rounds)
+    assert torch.equal(mask_b, tbset.blocked_dense(phi_e, pdt, port.adj[None],
+                                                   eps=teng.BLOCK_EPS))
     if point == "stale" and name != "abilene":
         assert got.any()                       # the case propagates
 
@@ -382,10 +390,11 @@ def test_metro_step_takes_the_sparse_route(monkeypatch):
         assert ttr.resolve_solver("auto", inst) == "batched_lu"
     phi = tgp.init_phi(inst)
     for mod, name in ((ttr, "stage_factors"), (tops, "batched_factor"),
-                      (tops, "fused_chain_solve"), (tops, "blocked_tagged")):
+                      (tops, "fused_chain_solve"), (tops, "blocked_set"),
+                      (tbset, "blocked_dense_plain")):
         _forbid(monkeypatch, mod, name)
     chains = _count_calls(monkeypatch, tss, "chain_solve_bsr_plain")
-    tagged = _count_calls(monkeypatch, tss, "tagged_nbr_plain")
+    tagged = _count_calls(monkeypatch, tss, "blocked_nbr_plain")
     state = tgp.gp_step(inst, phi, 0.1)
     assert torch.isfinite(state.cost)
     # traffic, marginals and the ladder: three chain launches; one sweep
