@@ -212,6 +212,37 @@ phase:
      port's runs from a jittered start (and, for an accelerated member's
      one-by-one line, its one-by-one run from that start) are made only
      for the lines that fail without them.
+  16c. online_trace — the event layer (``tests/data/torch_ref_online.npz``):
+     for the fig6 fleet (Abilene at the six Fig. 6 scales, two spare
+     application slots, 50 events) and the full-width sw-queue fleet (V=100,
+     30 + 2 applications, scales 0.5 and 1.0, 16 events), the port's
+     ``events.random_trace`` equal to the stored trace event for event and
+     every post-event member's fields bit-equal to the stored ones; then
+     ``run_sweep("online-trace")`` batched and one by one, one ``sweep``
+     line per member under ``sweep_parity`` against the reference's batched
+     cold solve, batched against one by one within 1e-4 (but for the
+     members of ``_torch_cases.ONLINE_KNOWN_FAULTS["cuda"]``, which must
+     fail as recorded: a ``TIE_BRANCH`` line with a run that differs from it
+     only by float32 rounding, the member batched with its neighbour or
+     from a start moved by one ulp, ending on the reference's branch; their
+     one-by-one path's own spread from moved starts is reported), and 32
+     batched steps profiled (ms per batched step, device ms and launches per step,
+     idle share).  Then the 12 warm re-solves with frozen applications: on
+     each event's member, the port's ``repair_phi`` of the reference's live
+     strategy within 1e-5 of the reference's, its gate
+     (``per_app_residual > 1e-4``) on the reference's repaired strategy
+     equal to the reference's (or a witnessed tie), ``gp.solve(app_mask=)``
+     under ``sweep_parity`` with the reference's other stage solver and its
+     latch-off run as witnesses (the stricter stall-latch contract
+     reported as ``latch_contract``), and the same solve stepped one
+     iteration a chunk with the frozen applications' rows bit-equal to the
+     start's on every committed iterate.  ``lu_factor``, ``chain_solve`` and ``tagged``
+     launch in the phase.
+  16d. simulate — the packet simulator on Abilene at rate 1.5: on the
+     reference's GP strategy the stored ``SimResult`` (``n_delivered`` and
+     ``mean_queue_occupancy`` equal, ``mean_delay`` within
+     ``_torch_cases.SIM_MEAN_TOL``, ``predicted_delay`` within 1e-5); on
+     the port's own GP output Little's law within 30%.
   17. sweep_profile — ``torch.profiler`` over 32 batched iterations of the
      Fig. 6 family and of Fig. 5's sw-queue group: device time per step by
      kernel, launches per step, idle share.
@@ -259,6 +290,7 @@ DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_digests.json")
 SCALE_DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_scale_digests.json")
 BSR_DIGESTS = os.path.join(TESTS, "data", "torch_card_bsr_digests.json")
 GOLDEN_DENSE = os.path.join(TESTS, "data", "torch_ref_dense_sw300.npz")
+GOLDEN_ONLINE = os.path.join(TESTS, "data", "torch_ref_online.npz")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -308,22 +340,35 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(out)
 
 
+EMPTY_TRACES = []   # the function of each trace retaken for having no device event
+
+
 def device_kernels(fn, calls: int = 1) -> dict:
     """{kernel name: (device ms in all, launches)} of the CUDA kernels that
     ``calls`` runs of ``fn`` launch, from ``torch.profiler`` after a
-    warm-up; empty if the trace holds no device events."""
+    warm-up; empty if the trace holds no device events.  A trace with no
+    device event at all is taken again, twice at most, and its function is
+    recorded in ``EMPTY_TRACES`` (printed before the kernels line): now and then
+    one comes back empty on the card, cause not found (the warning
+    torch's profiler prints about ``acc_events`` is not it: torch 2.11
+    prints it at the first trace of every process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key: (ev.self_device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {ev.key: (ev.self_device_time_total / 1e3, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if out:
+            break
+        EMPTY_TRACES.append(getattr(fn, "__qualname__", repr(fn)))
+    return out
 
 
 def kernel_ms(fn, symbol: str):
@@ -357,6 +402,9 @@ def rel_err(got, want, mask=None) -> tuple[float, float]:
     return float(d.max()), float((d / want.abs().clamp_min(1.0)).max())
 
 
+CARD = None      # the card's nvidia-smi name and power limit, for every timing line
+
+
 def phase_device():
     import torch
 
@@ -364,6 +412,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
@@ -2148,15 +2198,17 @@ def _local_steps(key, inst, alpha, masks_fn, n):
 
 
 def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None,
-             own_more=()):
+             own_more=(), branch_runs=None):
     """One JSON line per member of a sweep, held to the golden file
     (``_torch_cases.sweep_parity``, with the reference's own other runs of
     the member and the port's ``own`` other sweeps of the family as
     witnesses, and the runs ``f(i)`` of member i for ``f`` in ``own_more``,
     made only where its line fails without them: a witness can only make a
     line pass, so the verdict is the one with every witness;
-    ``chained_parity`` along a chain)."""
-    from _torch_cases import (SWEEP_KNOWN_FAULTS, certify, chained_parity, golden_member,
+    ``chained_parity`` along a chain).  A known fault that needs a branch
+    witness (``TIE_BRANCH``) takes member i's runs ``branch_runs(i)``
+    ({name: run} that differ from the line's only by float32 rounding)."""
+    from _torch_cases import (KNOWN_FAULTS, certify, chained_parity, golden_member,
                               golden_witnesses, known_fault_holds, sweep_parity)
     from repro_torch.core import baselines
 
@@ -2167,12 +2219,13 @@ def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None,
                                  [golden_member(z, fig, "GP", lab) for lab in labels],
                                  max_iters=max_iters)
     else:
-        refs, reports = [], []
+        refs, reports, wkw = [], [], []
         for i, (lab, r) in enumerate(zip(labels, res.results)):
             # a one-by-one run is held to the reference's one-by-one run
             # where the golden file has it (Fig. 6, Fig. 5's six small)
             ser = way == "serial" and golden_member(z, fig, solver + "-serial", lab)
             refs.append(ser or golden_member(z, fig, solver, lab))
+            wkw.append(golden_witnesses(z, fig, solver, lab, serial=bool(ser)))
             check = functools.partial(
                 sweep_parity, r, refs[-1], max_iters=max_iters,
                 certify=functools.partial(certify, res.scenarios[i].instance, r.phi,
@@ -2180,16 +2233,21 @@ def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None,
                 local=(None if solver == "GP-accel" else functools.partial(
                     _local_steps, (fig, solver, lab), res.scenarios[i].instance, alpha,
                     baselines.BASELINE_MASKS.get(solver))),
-                **golden_witnesses(z, fig, solver, lab, serial=bool(ser)))
+                **wkw[-1])
             rep = check(own=[o.results[i] for o in own])
             if not rep["ok"] and own_more:
                 rep = check(own=[o.results[i] for o in own] + [f(i) for f in own_more])
             reports.append(rep)
     out = {}
     for i, (sc, r, ref, rep) in enumerate(zip(res.scenarios, res.results, refs, reports)):
-        known = SWEEP_KNOWN_FAULTS["cuda"].get((fig, solver, way, sc.label))
+        known = KNOWN_FAULTS["cuda"].get((fig, solver, way, sc.label))
         if known:
             KNOWN_SEEN.add((fig, solver, way, sc.label))
+        branch = {}
+        if known and known.get("branch_witness") and branch_runs is not None:
+            branch = {name: sweep_parity(run, ref, max_iters=max_iters, **wkw[i])
+                      for name, run in branch_runs(i).items()}
+        held = known and known_fault_holds(rep, known, list(branch.values()))
         emit({"phase": "sweep", "fig": fig, "solver": solver, "way": way,
               "known_fault": known and known["reason"],
               "member": sc.label, "V": sc.instance.V, "final_cost": r.final_cost,
@@ -2203,13 +2261,16 @@ def _members(fig, solver, way, res, z, max_iters, alpha, own=(), seconds=None,
                                          "first_flip",
                                          "stall_witness", "first_departure",
                                          "self_departure", "self_witness",
-                                         "local_witness", "start_rel")}})
+                                         "local_witness", "start_rel")},
+              **({"branch_witnesses": {
+                  name: {k: w[k] for k in ("final_rel", "final_tol", "first_flip")}
+                  for name, w in branch.items()}} if branch else {})})
         if known and rep["ok"]:
             SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: a known fault passes "
-                                  f"now; take it out of _torch_cases.SWEEP_KNOWN_FAULTS")
-        elif known and known_fault_holds(rep, known):
+                                  f"now; take it out of its table in _torch_cases.KNOWN_FAULTS")
+        elif held:
             SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: not as recorded: "
-                                  f"{known_fault_holds(rep, known)}")
+                                  f"{held}")
         elif not known and not rep["ok"]:
             SWEEP_FAILURES.append(f"{fig} {solver} {way} {sc.label}: {rep['why']}")
         out[sc.label] = r.final_cost
@@ -2307,44 +2368,314 @@ def phase_sweep(fig, z):
     emit({"phase": "sweep", "fig": fig, "summary": summary, "claim": claim})
 
 
-def phase_sweep_profile():
-    """Where a batched step's time goes: ``torch.profiler`` over 32
-    iterations of the Fig. 6 family (B=6, V=11) and of Fig. 5's sw-queue
-    group (B=1, V=100), latches off; the idle share against the same run
-    unprofiled."""
+def _step_profile(binst, steps: int = 32) -> dict:
+    """Where a batched step's time goes, over ``steps`` iterations of the
+    stacked family ``binst`` with every latch off: ms per step (unprofiled
+    wall), device ms and launches per step, by kernel too
+    (``torch.profiler``), and the idle share against the unprofiled run."""
     import torch
-    from repro_torch.core import batch, gp, scenarios
+    from repro_torch.core import gp
+    from repro_torch.kernels import ops
+
+    def run():
+        return gp.solve_batched(binst, alpha=0.1, max_iters=steps, tol=-1.0,
+                                patience=10**6)
+
+    run()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / steps
+    launches = ops.launch_counts()
+    kern = device_kernels(run)
+    per_step = {k: ms / steps for k, (ms, _) in kern.items()}
+    busy = sum(per_step.values())
+    ours = {name: sum(v for k, v in per_step.items() if sym in k)
+            for name, sym in (("lu_factor", "lu_kernel"), ("chain_solve", "chain_kernel"),
+                              ("tagged", "tagged_dense_kernel"))}
+    top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
+    return {"members": binst.batch_shape[0], "V": binst.V, "A": binst.A, "steps": steps,
+            "ms_per_step": ms_step, "device_ms_per_step": busy if busy > 0 else None,
+            "kernels_ms_per_step": ours, "other_ms_per_step": busy - sum(ours.values()),
+            "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
+            "kernel_launches_per_step": {k: v / steps for k, v in launches.items() if v},
+            "idle_share": 1 - busy / ms_step if busy > 0 else None,
+            "top": [[k[:80], v] for v, k in top[:8]]}
+
+
+def phase_sweep_profile():
+    """Where a batched step's time goes (``_step_profile``): 32 iterations
+    of the Fig. 6 family (B=6, V=11) and of Fig. 5's sw-queue group (B=1,
+    V=100)."""
+    from repro_torch.core import batch, scenarios
 
     for label, fam in (("fig6-congestion", scenarios.expand("fig6-congestion")),
                        ("fig5-sw-queue", [sc for sc in scenarios.expand("fig5")
                                           if sc.label == "sw-queue"])):
-        binst = batch.pad_instances([sc.instance for sc in fam])
-        steps = 32
+        emit({"phase": "sweep_profile", "family": label,
+              **_step_profile(batch.pad_instances([sc.instance for sc in fam]))})
 
-        def run():
-            return gp.solve_batched(binst, alpha=0.1, max_iters=steps, tol=-1.0,
-                                    patience=10**6)
 
-        run()
+def _online_fleet(fleet, z):
+    """One fleet's ``online-trace`` sweep on the card: the trace and every
+    post-event member against the file, the family batched and one by one
+    under ``sweep_parity``, batched against one by one within 1e-4, and
+    the batched step's profile."""
+    import torch
+    from _torch_cases import (ONLINE_KNOWN_FAULTS, jittered, member_mismatches,
+                              online_sweep_kwargs, online_trace, same_event)
+    from repro_torch.core import events, network, scenarios
+    from repro_torch.kernels import ops
+
+    skw, gkw = online_sweep_kwargs(z, fleet)
+    t0 = time.perf_counter()
+    members = events.pad_fleet([network.table_ii_instance(skw["scenario"], seed=skw["seed"],
+                                                          rate_scale=s)
+                                for s in skw["scales"]], skw["spare_apps"])
+    trace = events.random_trace(members, n_events=skw["n_events"], seed=skw["seed"])
+    trace_s = time.perf_counter() - t0
+    stored = online_trace(z, fleet)
+    same = len(trace) == len(stored) and all(map(same_event, trace, stored))
+    fam = scenarios.expand("online-trace", **skw)
+    mism = member_mismatches(z, fleet, [sc.instance for sc in fam])
+    require(same and not mism, f"online-trace {fleet}: the trace equals the stored one "
+                               f"({same}) and every member field ({mism[:5]})")
+    kw = dict(record=True, **gkw)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    bat = scenarios.run_sweep(fam, **kw)
+    launches = ops.launch_counts()
+    secs, ser_results = [], []
+    for sc in fam:
+        one = scenarios.run_sweep_serial([sc], **kw)
+        secs.append(one.seconds)
+        ser_results.extend(one.results)
+    ser = scenarios.SweepResult(fam, ser_results, sum(secs), len(fam))
+    jit_sweep = functools.cache(lambda: scenarios.run_sweep(fam, **kw, masks_fn=jittered()))
+
+    def jit(i):
+        return jit_sweep().results[i]
+
+    def branch_runs(i):
+        # the member batched with its neighbour in the family, and its
+        # batched run from a start moved by one ulp
+        j = min(i, len(fam) - 2)
+        return {"pair": scenarios.run_sweep(fam[j:j + 2], **kw).results[i - j],
+                "jittered": jit(i)}
+    finals = _members(fleet, "GP", "batched", bat, z, gkw["max_iters"], gkw["alpha"],
+                      own=(ser,), own_more=(jit,), branch_runs=branch_runs)
+    ser_finals = _members(fleet, "GP", "serial", ser, z, gkw["max_iters"], gkw["alpha"],
+                          own=(bat,), seconds=secs, own_more=(jit,), branch_runs=branch_runs)
+    # batched against one by one, but for the members pinned to a recorded
+    # fault (each held to that fault, with its witnesses, in its own lines);
+    # for those, the one-by-one path's own spread: its runs from starts
+    # moved by one ulp (seeds 0-2), relative to its run
+    pinned = {k[3] for k in ONLINE_KNOWN_FAULTS["cuda"] if k[0] == fleet}
+    bs = {k: abs(finals[k] - c) / abs(c) for k, c in ser_finals.items()}
+    bs_rel = max(v for k, v in bs.items() if k not in pinned)
+    labels = [sc.label for sc in fam]
+    spread = {k: [abs(scenarios.run_sweep_serial([fam[labels.index(k)]], masks_fn=jittered(seed=s),
+                                                 **kw).results[0].final_cost
+                      - ser_finals[k]) / abs(ser_finals[k]) for s in range(3)]
+              for k in sorted(pinned & set(labels))}
+    if not bs_rel <= 1e-4:
+        SWEEP_FAILURES.append(f"online-trace {fleet}: batched vs serial {bs_rel}")
+    from repro_torch.core import batch
+
+    prof = _step_profile(batch.pad_instances([sc.instance for sc in fam]))
+    row = {"phase": "online_trace", "fleet": fleet, "sweep_kwargs": skw, **gkw,
+           "events": len(trace), "trace_equal": same, "members_equal": not mism,
+           "trace_seconds": trace_s, "batched_s": bat.seconds, "serial_s": ser.seconds,
+           "groups": bat.n_batches,
+           "iterations_batched": sum(r.iterations for r in bat.results),
+           "iterations_serial": sum(r.iterations for r in ser.results),
+           "batched_vs_serial_max_rel": bs_rel,
+           "batched_vs_serial_pinned": {k: bs.get(k) for k in sorted(pinned)},
+           "serial_moved_starts_vs_serial_pinned": spread,
+           "launches_batched": launches, "profile": prof, "card": CARD}
+    emit(row)
+    require(all(launches[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
+            f"online-trace {fleet}: the dense route's kernels launched: {launches}")
+    return row
+
+
+def _warm_resolves(z):
+    """The frozen-application warm re-solves of the file on the card: the
+    port's ``repair_phi`` of the reference's live strategy within 1e-5 of
+    the reference's, the gate on the reference's repaired strategy equal
+    (or a witnessed tie), the solve under ``sweep_parity`` with the
+    reference's own other runs as witnesses (and the stricter stall-latch
+    contract reported beside it), and on every committed iterate the frozen rows
+    bit-equal to the start's."""
+    import torch
+    from _torch_cases import (WARM_KNOWN_FAULTS, gate_parity, golden_witnesses,
+                              known_fault_holds, online_meta, online_sweep_kwargs,
+                              online_trace, sweep_parity, warm_case, warm_parity)
+    from repro_torch.core import conditions, engine, events, gp, network, traffic
+    from repro_torch.core.traffic import Phi
+    from repro_torch.kernels import ops
+
+    meta = online_meta(z)
+    warm = meta["warm"]
+    skw, _ = online_sweep_kwargs(z, warm["fleet"])
+    members = events.pad_fleet([network.table_ii_instance(skw["scenario"], seed=skw["seed"],
+                                                          rate_scale=s)
+                                for s in skw["scales"]], skw["spare_apps"])
+    stored = online_trace(z, warm["fleet"])
+    kw = {"alpha": warm["alpha"], "max_iters": warm["max_iters"]}
+    alpha = torch.tensor(warm["alpha"], dtype=torch.float32, device="cuda")
+    rows, seen = [], set()
+    for t, ev in enumerate(stored[:warm["events"]]):
+        label = f"t{t:02d}"
+        members[ev.member], _ = events.apply_event(members[ev.member], ev)
+        inst = members[ev.member]
+        case = warm_case(z, t)
+
+        def dev(name):
+            return torch.from_numpy(case[name]).cuda()
+        live, phi0 = Phi(dev("live_e"), dev("live_c")), Phi(dev("phi0_e"), dev("phi0_c"))
+        repaired = traffic.repair_phi(inst, live, gp.init_phi(inst))
+        repair_rel = max(rel_err(repaired.e, phi0.e)[1], rel_err(repaired.c, phi0.c)[1])
+        gate = gate_parity(conditions.per_app_residual(inst, phi0), case["residual0"],
+                           case["mask"], meta["gate_tol"])
+        mask = torch.tensor(gate["mask"], dtype=torch.bool, device="cuda")
         torch.cuda.synchronize()
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        run()
+        res = gp.solve(inst, phi0, app_mask=mask, record=True, **kw)
         torch.cuda.synchronize()
-        ms_step = (time.perf_counter() - t0) * 1e3 / steps
-        kern = device_kernels(run)
-        per_step = {k: ms / steps for k, (ms, _) in kern.items()}
-        busy = sum(per_step.values())
-        ours = {name: sum(v for k, v in per_step.items() if sym in k)
-                for name, sym in (("lu_factor", "lu_kernel"), ("chain_solve", "chain_kernel"),
-                                  ("tagged", "tagged_dense_kernel"))}
-        top = sorted(((v, k) for k, v in per_step.items()), reverse=True)
-        emit({"phase": "sweep_profile", "family": label, "members": len(fam),
-              "V": binst.V, "steps": steps, "ms_per_step": ms_step,
-              "device_ms_per_step": busy if busy > 0 else None,
-              "kernels_ms_per_step": ours, "other_ms_per_step": busy - sum(ours.values()),
-              "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
-              "idle_share": 1 - busy / ms_step if busy > 0 else None,
-              "top": [[k[:80], v] for v, k in top[:8]]})
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        # the same solve one step a chunk: every committed iterate seen
+        frozen, frozen_ok = ~mask, True
+        carry = engine.init_carry(inst, phi0)
+        for _ in range(res.iterations):
+            carry, *_ = engine.scan_chunk(inst, carry, alpha, 1e-4, 40, kw["max_iters"],
+                                          app_mask=mask, length=1)
+            frozen_ok &= bool(torch.equal(carry.phi.e[frozen], phi0.e[frozen])
+                              and torch.equal(carry.phi.c[frozen], phi0.c[frozen]))
+        same_end = bool(torch.equal(carry.phi.e, res.phi.e)
+                        and torch.equal(carry.cost, res.cost_history[-1]))
+        rep = sweep_parity(res, case, max_iters=kw["max_iters"],
+                           **golden_witnesses(z, "warm", "GP", label))
+        latch = warm_parity(res, case, tol=1e-4, max_iters=kw["max_iters"])
+        known = WARM_KNOWN_FAULTS["cuda"].get(label)
+        if known:
+            seen.add(label)
+        row = {"phase": "online_trace", "part": "warm", "t": t, "member": ev.member,
+               "event": type(ev).__name__, "gate": gate, "repair_max_rel": repair_rel,
+               "iterations": res.iterations, "reference_iterations": int(case["iterations"]),
+               "final_cost": res.final_cost,
+               "reference_final_cost": float(case["cost_history"][-1]),
+               "frozen_rows_unmoved": frozen_ok, "stepwise_equals_solve": same_end,
+               "wall_s": wall, "card": CARD, "launches": launches,
+               "known_fault": known and known["reason"],
+               "latch_contract": {k: latch[k] for k in ("ok", "why", "prefix_max_rel",
+                                                        "final_rel")},
+               **{k: rep.get(k) for k in ("ok", "why", "split", "prefix_max_rel", "final_rel",
+                                          "final_tol", "flips", "first_flip",
+                                          "stall_witness", "first_departure",
+                                          "self_departure", "self_witness")}}
+        emit(row)
+        rows.append(row)
+        what = f"warm {label}"
+        require(repair_rel <= 1e-5, f"{what}: repair_phi within 1e-5: {repair_rel}")
+        require(gate["ok"], f"{what}: gate masks: {gate}")
+        require(frozen_ok and same_end, f"{what}: frozen rows unmoved ({frozen_ok}), stepwise "
+                                        f"run equal to the solve ({same_end})")
+        if mask.any():
+            require(all(launches[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
+                    f"{what}: the dense route's kernels launched: {launches}")
+        if known and rep["ok"]:
+            SWEEP_FAILURES.append(f"{what}: a known fault passes now; take it out of "
+                                  "_torch_cases.WARM_KNOWN_FAULTS")
+        elif known and known_fault_holds(rep, known):
+            SWEEP_FAILURES.append(f"{what}: not as recorded: {known_fault_holds(rep, known)}")
+        elif not known and not rep["ok"]:
+            SWEEP_FAILURES.append(f"{what}: {rep['why']}")
+    unseen = sorted(set(WARM_KNOWN_FAULTS["cuda"]) - seen)
+    require(not unseen, f"warm known faults not run: {unseen}")
+    return rows
+
+
+def phase_online_trace(z):
+    """Both fleets' ``online-trace`` sweeps and the warm re-solves, with the
+    launch counts read over the whole phase."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    counts = {k: 0 for k in ops.launch_counts()}
+    rows = {}
+    for fleet in ("fig6", "sw"):
+        rows[fleet] = _online_fleet(fleet, z)
+        counts = {k: counts[k] + v for k, v in rows[fleet]["launches_batched"].items()}
+    warm = _warm_resolves(z)
+    for r in warm:
+        counts = {k: counts[k] + v for k, v in r["launches"].items()}
+    emit({"phase": "online_trace", "card": CARD, "summary": {
+        f: {k: rows[f][k] for k in ("batched_s", "serial_s", "iterations_batched",
+                                    "iterations_serial", "batched_vs_serial_max_rel")}
+        | {"ms_per_batched_step": rows[f]["profile"]["ms_per_step"],
+           "launches_per_step": rows[f]["profile"]["device_launches_per_step"],
+           "idle_share": rows[f]["profile"]["idle_share"]} for f in rows},
+        "warm": {"solves": len(warm), "iterations": sum(r["iterations"] for r in warm),
+                 "wall_s": sum(r["wall_s"] for r in warm),
+                 "latch_contract_ok": [r["t"] for r in warm if r["latch_contract"]["ok"]]},
+        "launches_over_batched_sweeps_and_warm_solves": counts})
+    require(all(counts[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
+            f"online_trace: the dense route's kernels launched in the phase: {counts}")
+
+
+def phase_simulate(z):
+    """The packet simulator on the card's instance: on the reference's GP
+    strategy the file's ``SimResult`` (count and occupancy exactly, the
+    mean delay within ``SIM_MEAN_TOL``, the predicted delay within 1e-5), and on the port's own GP output
+    Little's law within 30% (``tests/test_simulate.py``)."""
+    import dataclasses
+
+    import torch
+    from _torch_cases import SIM_MEAN_TOL, online_meta
+    from repro_torch.core import gp, network
+    from repro_torch.core.simulate import SimResult, simulate
+    from repro_torch.core.traffic import Phi, total_cost
+    from repro_torch.kernels import ops
+
+    p = online_meta(z)["sim"]
+    inst = network.table_ii_instance(p["scenario"], seed=p["seed"], rate_scale=p["rate_scale"])
+    phi = Phi(e=torch.from_numpy(z["sim/phi_e"]).cuda(), c=torch.from_numpy(z["sim/phi_c"]).cuda())
+    sim_kw = dict(horizon=p["horizon"], warmup=p["warmup"], seed=p["sim_seed"])
+    t0 = time.perf_counter()
+    got = simulate(inst, phi, **sim_kw)
+    wall = time.perf_counter() - t0
+    want = SimResult(**{f.name: z[f"sim/{f.name}"].item() for f in dataclasses.fields(SimResult)})
+    mean_rel = abs(got.mean_delay - want.mean_delay) / abs(want.mean_delay)
+    pred_rel = abs(got.predicted_delay - want.predicted_delay) / abs(want.predicted_delay)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = gp.solve(inst, alpha=p["alpha"], max_iters=p["max_iters"])
+    launches = ops.launch_counts()
+    own = simulate(inst, res.phi, **sim_kw)
+    D = float(total_cost(inst, res.phi))
+    delay_rel = abs(own.mean_delay - own.predicted_delay) / own.predicted_delay
+    occ_rel = abs(own.mean_queue_occupancy - D) / D
+    emit({"phase": "simulate", "card": CARD, "instance": f"abilene@{p['rate_scale']}",
+          **sim_kw,
+          "reference_strategy": dataclasses.asdict(got), "reference": dataclasses.asdict(want),
+          "mean_delay_rel": mean_rel, "predicted_delay_rel": pred_rel,
+          "simulate_wall_s": wall,
+          "port_gp": {"iterations": res.iterations, "final_cost": res.final_cost,
+                      "launches": launches, **dataclasses.asdict(own),
+                      "delay_vs_predicted_rel": delay_rel, "occupancy_vs_cost_rel": occ_rel}})
+    require((got.n_delivered, got.mean_queue_occupancy)
+            == (want.n_delivered, want.mean_queue_occupancy)
+            and mean_rel <= SIM_MEAN_TOL and pred_rel <= 1e-5,
+            f"simulate on the reference's strategy: {got} vs {want}")
+    require(own.n_delivered > 3000 and delay_rel <= 0.30 and occ_rel <= 0.30,
+            f"Little's law on the port's GP output: {own}, D={D}")
 
 
 PARENT_PATHS = ("solve", "metro", "dense300", "fig6")
@@ -2423,8 +2754,8 @@ def main(argv=None) -> int:
     src = os.path.join(HERE, "src")
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
-                                                   GOLDEN_SWEEP, GOLDEN_DENSE, DIGESTS,
-                                                   SCALE_DIGESTS, BSR_DIGESTS))):
+                                                   GOLDEN_SWEEP, GOLDEN_DENSE, GOLDEN_ONLINE,
+                                                   DIGESTS, SCALE_DIGESTS, BSR_DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -2470,10 +2801,14 @@ def main(argv=None) -> int:
         ref_sweep = {k: z[k] for k in z.files}
     for fig in ("fig6", "fig5", *HELD_SWEEPS):
         phased(f"sweep_{fig}", phase_sweep, fig, ref_sweep)
+    with np.load(GOLDEN_ONLINE) as z:
+        ref_online = {k: z[k] for k in z.files}
+    phased("online_trace", phase_online_trace, ref_online)
+    phased("simulate", phase_simulate, ref_online)
     emit({"phase": "seconds", **PHASE_SECONDS})
-    from _torch_cases import SWEEP_KNOWN_FAULTS
+    from _torch_cases import KNOWN_FAULTS
 
-    unseen = sorted(set(SWEEP_KNOWN_FAULTS["cuda"]) - KNOWN_SEEN)
+    unseen = sorted(set(KNOWN_FAULTS["cuda"]) - KNOWN_SEEN)
     require(not SWEEP_FAILURES and not unseen,
             f"sweep members: {SWEEP_FAILURES}; known faults not run: {unseen}")
     phased("sweep_profile", phase_sweep_profile)
@@ -2524,6 +2859,7 @@ def main(argv=None) -> int:
                      "prev_launches_per_call": main_row.get("prev_launches_per_call"),
                      "prev_commit": main_row.get("prev_commit"),
                      "shape": main_row["shape"], "cases": rows})
+    emit({"phase": "profiler", "empty_traces_retaken": EMPTY_TRACES})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -57,7 +57,8 @@ def _refuse_sparse(inst: Instance) -> None:
     if inst.has_sparse:
         raise NotImplementedError(
             "batching instances with a sparse topology (the neighbor lists' "
-            "hetero-degree padding) is not ported yet: ROADMAP Queue 1 item 8; "
+            "hetero-degree padding) is not ported yet: ROADMAP Queue 1, Sparse "
+            "batching and the metro leftovers; "
             "strip it with network.without_sparse")
 
 

@@ -43,5 +43,29 @@ def sufficiency_residual(inst: Instance, phi: Phi,
     return _residual(min_margin, m.delta_e, m.delta_c, phi, active_eps)
 
 
+def per_app_residual(inst: Instance, phi: Phi,
+                     active_eps: float = 1e-6) -> torch.Tensor:
+    """(..., A) sufficiency residual of condition (6), per application.
+
+    The excess of :func:`sufficiency_residual`, with the marginals computed
+    under the global flows F/G (an application's residual reflects the
+    congestion every other application imposes on it), maximized only over
+    the application's own (k, i, j) directions.  ~0 certifies that the
+    application's strategy is stationary given everyone else's: the skip
+    gate of the online re-solve.  Dead or padded applications (no active
+    direction) give exactly 0.
+    """
+    m = marginals(inst, phi)
+    min_margin = torch.minimum(m.delta_e.amin(-1), m.delta_c)   # (...,A,K1,V)
+    zero = phi.c.new_zeros(())
+    exc_e = torch.where(phi.e > active_eps, m.delta_e - min_margin[..., None], zero)
+    exc_c = torch.where(phi.c > active_eps, m.delta_c - min_margin, zero)
+    return torch.maximum(exc_e.flatten(-3).amax(-1), exc_c.flatten(-2).amax(-1))
+
+
 def satisfies_sufficiency(inst: Instance, phi: Phi, tol: float = 1e-3) -> bool:
     return bool(sufficiency_residual(inst, phi) <= tol)
+
+
+def satisfies_kkt(inst: Instance, phi: Phi, tol: float = 1e-3) -> bool:
+    return bool(kkt_residual(inst, phi) <= tol)

@@ -1,9 +1,9 @@
 """One GP step: the fused Algorithm-1 iteration, the acceleration layer and
 the chunk loop body.
 
-Port of ``repro.core.engine`` for one device, without application masks or
-telemetry.  The stage solver follows the instance
-(``traffic.resolve_solver("auto", inst)``).  Per iteration, on the dense
+Port of ``repro.core.engine`` for one device, without telemetry.  The
+stage solver follows the instance (``traffic.resolve_solver("auto",
+inst)``).  Per iteration, on the dense
 route (``batched_lu``):
 
   * one batched LU of every (app, stage) system, shared by the traffic
@@ -43,6 +43,15 @@ an :class:`AccelConfig`:
 :func:`scan_chunk` advances a :class:`SolveCarry` by a fixed number of
 iterations without reading anything back to the host: the early stop is a
 ``done`` latch that freezes the carry, as in the reference's scan body.
+:func:`reset_carry` re-arms a carry for the next re-convergence after an
+online event.
+
+**Frozen applications.**  ``app_mask`` ((..., A) bool) freezes the
+applications where it is False: every ladder candidate (and the Anderson
+mix) keeps their incoming rows before its flows are measured, so each rung
+costs exactly what it would commit, and the residual ignores their
+directions.  Frozen applications still load the shared F/G measurement.
+This is the residual skip gate of the online re-solve.
 """
 
 from __future__ import annotations
@@ -151,6 +160,21 @@ def _choose(mask: torch.Tensor, a, b):
     return torch.where(_member(mask, a), a, b)
 
 
+def _freeze(app_mask: Optional[torch.Tensor], cand: Phi, phi: Phi,
+            lead: int = 0) -> Phi:
+    """``cand`` with the rows of the applications frozen by ``app_mask``
+    ((..., A) bool, False = frozen) taken from ``phi``; ``lead`` counts the
+    dims ``cand`` has between the member dims and (A, K1, ...) (the
+    ladder's), which ``phi`` lacks."""
+    if app_mask is None:
+        return cand
+    live = app_mask.reshape(app_mask.shape[:-1] + (1,) * lead + app_mask.shape[-1:])
+    pe = phi.e.reshape(phi.e.shape[:-4] + (1,) * lead + phi.e.shape[-4:])
+    pc = phi.c.reshape(phi.c.shape[:-3] + (1,) * lead + phi.c.shape[-3:])
+    return Phi(e=torch.where(live[..., None, None, None], cand.e, pe),
+               c=torch.where(live[..., None, None], cand.c, pc))
+
+
 # ---------------------------------------------------------------------------
 # Blocked node sets
 # ---------------------------------------------------------------------------
@@ -205,7 +229,8 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
                       allowed_e: Optional[torch.Tensor] = None,
                       allowed_c: Optional[torch.Tensor] = None,
                       scaled: bool = False,
-                      accel: Optional[AccelConfig] = None):
+                      accel: Optional[AccelConfig] = None,
+                      app_mask: Optional[torch.Tensor] = None):
     """The projection step's candidates at every ladder rung.
 
     Returns ``(cands, ladder, residual)``: ``cands`` is a :class:`Phi` with
@@ -213,6 +238,8 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
     ``ladder`` the (..., R) stepsizes (``alpha`` is a scalar or one per
     member), ``residual`` the sufficiency residual of ``phi`` per member.
     R is 12 (:data:`ALPHA_LADDER`), or 4 with ``accel.adaptive_alpha``.
+    With ``app_mask`` the frozen applications' rows of every candidate are
+    ``phi``'s and their directions leave the residual.
     """
     solver = traffic_mod.resolve_solver("auto", inst)
     fact = traffic_mod.stage_factors(phi.e) if solver == "batched_lu" else None
@@ -276,6 +303,8 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
         e=pe - red_e + share[..., None] * me,
         c=pc - red_c + share * mc,
     ))
+    # frozen apps keep their incoming rows, before any flow is measured
+    cands = _freeze(app_mask, cands, phi, lead=1)
 
     if accel is not None and accel.residual_stop:
         # the exact conditions.sufficiency_residual form: the minimum over
@@ -285,6 +314,10 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
         min_margin = min_delta
     exc_e = torch.where(phi.e > 1e-6, m.delta_e - min_margin[..., None], zero)
     exc_c = torch.where(phi.c > 1e-6, m.delta_c - min_margin, zero)
+    if app_mask is not None:
+        # the stop latch does not wait on frozen apps
+        exc_e = torch.where(app_mask[..., None, None, None], exc_e, zero)
+        exc_c = torch.where(app_mask[..., None, None], exc_c, zero)
     residual = torch.maximum(exc_e.flatten(-4).amax(-1), exc_c.flatten(-3).amax(-1))
     return cands, ladder, residual
 
@@ -299,17 +332,19 @@ def gp_step(inst: Instance, phi: Phi, alpha,
             allowed_e: Optional[torch.Tensor] = None,
             allowed_c: Optional[torch.Tensor] = None,
             scaled: bool = False,
-            accel: Optional[AccelConfig] = None) -> GPState:
+            accel: Optional[AccelConfig] = None,
+            app_mask: Optional[torch.Tensor] = None) -> GPState:
     """One fused GP iteration: project at every ladder rung, keep the best.
 
     A too-aggressive candidate can form a routing loop, whose divergent
     traffic gives an inf/NaN cost; NaN becomes inf before the argmin so
     such candidates lose it (``torch.argmin`` would return the NaN's index).
     Ties go to the first rung, as in the reference.  Each member picks its
-    own rung.
+    own rung.  ``app_mask`` ((..., A) bool) freezes the applications where
+    it is False (module docstring).
     """
     cands, ladder, residual = ladder_candidates(
-        inst, phi, alpha, allowed_e, allowed_c, scaled, accel)
+        inst, phi, alpha, allowed_e, allowed_c, scaled, accel, app_mask)
     cand_costs = _strategy_cost(inst.lifted, cands)         # (..., R)
     cand_costs = torch.where(torch.isnan(cand_costs), torch.inf, cand_costs)
     best = torch.argmin(cand_costs, dim=-1)
@@ -419,6 +454,35 @@ def init_carry(inst: Instance, phi: Phi,
     )
 
 
+def reset_carry(inst: Instance, phi: Phi, carry: SolveCarry, *,
+                keep_window: bool = False) -> SolveCarry:
+    """Re-arm a carry for a new re-convergence (after an online event).
+
+    Rebuilds the bookkeeping around the (possibly repaired) strategy
+    ``phi``: cost and best cost at the current instance, the stall, done
+    and iteration latches cleared.  ``keep_window=True`` keeps the
+    Anderson window and the adaptive stepsize (a small rate change: the
+    stale pairs only feed a mix that the safeguard, costed under the new
+    instance, may reject); ``keep_window=False`` clears them (a topology
+    event, where the fixed-point map itself changed).
+    """
+    cost0 = total_cost(inst, phi).to(torch.float32)
+    int0 = torch.zeros_like(carry.iters)
+    return carry._replace(
+        phi=phi,
+        best_cost=cost0,
+        stall=int0,
+        done=torch.zeros_like(carry.done),
+        iters=int0,
+        cost=cost0,
+        residual=torch.full_like(carry.residual, torch.inf),
+        alpha=carry.alpha if keep_window else torch.zeros_like(carry.alpha),
+        ax=carry.ax if keep_window else torch.zeros_like(carry.ax),
+        af=carry.af if keep_window else torch.zeros_like(carry.af),
+        ak=carry.ak if keep_window else int0,
+    )
+
+
 # Per-step records of scan_chunk(record=True): the decisions of each step,
 # from which a trajectory that leaves another one can be traced to the step
 # and the decision where it left (a rung tie, an Anderson acceptance, a
@@ -430,7 +494,7 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
                max_iters: int, allowed_e: Optional[torch.Tensor] = None,
                allowed_c: Optional[torch.Tensor] = None, *, length: int,
                scaled: bool = False, accel: Optional[AccelConfig] = None,
-               record: bool = False):
+               app_mask: Optional[torch.Tensor] = None, record: bool = False):
     """Advance the solve by ``length`` iterations, entirely on the device.
 
     Once ``done`` latches (residual below tol, no improvement for
@@ -444,7 +508,8 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
     the winning rung, its stepsize, every rung's cost, the Anderson
     decision (1 accepted, 0 rejected, -1 mixer off), the mixed candidate's
     cost (inf with the mixer off) and the committed move max|dphi|.
-    Records of frozen steps are not meaningful.
+    Records of frozen steps are not meaningful.  ``app_mask`` freezes
+    applications (module docstring), in the Anderson mix too.
     """
     use_anderson = accel is not None and accel.anderson_m > 0
     use_adaptive = accel is not None and accel.adaptive_alpha
@@ -456,7 +521,8 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
     for _ in range(length):
         # carry alpha 0 = unseeded: the first iteration takes the caller's
         alpha_eff = torch.where(c.alpha > 0, c.alpha, alpha) if use_adaptive else alpha
-        state = gp_step(inst, c.phi, alpha_eff, allowed_e, allowed_c, scaled, accel)
+        state = gp_step(inst, c.phi, alpha_eff, allowed_e, allowed_c, scaled, accel,
+                        app_mask)
         new_phi, new_cost = state.phi, state.cost
         ax, af, ak = c.ax, c.af, c.ak
         accept, cost_mix = None, None
@@ -464,7 +530,9 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
             x_k = _flat_phi(c.phi)
             f_k = _flat_phi(state.phi) - x_k
             mix = _anderson_mix(ax, af, ak, x_k, f_k, accel.anderson_reg)
-            phi_mix = renormalize(inst, _unflat_phi(mix, c.phi))
+            # the mixer extrapolates over the whole flattened phi: frozen
+            # apps are put back before the mix is costed
+            phi_mix = _freeze(app_mask, renormalize(inst, _unflat_phi(mix, c.phi)), c.phi)
             cost_mix = _strategy_cost(inst, phi_mix)
             cost_mix = torch.where(torch.isnan(cost_mix), torch.inf, cost_mix)
             feas = feasibility_violation(inst, phi_mix)

@@ -10,9 +10,13 @@ three solvers built on the engine's chunk loop (:func:`engine.scan_chunk`):
     histories (:class:`GPScan`);
   * :func:`solve_batched` — a stacked family (``batch.pad_instances``) in
     one member-batched loop, with chunks growing from 8 to 64 iterations
-    and converged members compacted away between chunks.
+    and converged members compacted away between chunks;
+  * :func:`solve_loop` — one instance, the per-iteration host loop (the
+    reference's loop for differential testing), bit-equal to :func:`solve`.
 
-Each takes ``accel=`` (the acceleration layer, ``engine.resolve_accel``).
+Each of the first three takes ``accel=`` (the acceleration layer,
+``engine.resolve_accel``); :func:`solve` and :func:`solve_scan` take
+``app_mask=`` (frozen applications, the online skip gate).
 """
 
 from __future__ import annotations
@@ -182,6 +186,7 @@ def solve(
     patience: int = 40,
     scaled: bool = False,
     accel=None,
+    app_mask: Optional[torch.Tensor] = None,
     record: bool = False,
     device: Device = "cuda",
 ) -> GPResult:
@@ -190,9 +195,11 @@ def solve(
     The loop body never syncs to the host; only the ``done`` latch is read
     back, once every ``_SOLVE_CHUNK`` iterations, so a converged run stops
     early.  ``accel=True`` (or an ``engine.AccelConfig``) runs the
-    acceleration layer; ``record=True`` keeps each step's decisions
-    (``GPResult.records``).  ``inst`` must lie on ``device`` (CUDA unless
-    the caller passes ``device="cpu"``).
+    acceleration layer; ``app_mask`` ((A,) bool) freezes the applications
+    where it is False: they keep their rows of ``phi0`` and still load the
+    shared flows, and the residual stop ignores them; ``record=True`` keeps
+    each step's decisions (``GPResult.records``).  ``inst`` must lie on
+    ``device`` (CUDA unless the caller passes ``device="cpu"``).
     """
     _on_device(inst, device)
     accel = engine.resolve_accel(accel)
@@ -206,7 +213,7 @@ def solve(
         carry, cs, rs, *rec = engine.scan_chunk(
             inst, carry, alpha_, tol, patience, max_iters, allowed_e, allowed_c,
             length=min(_SOLVE_CHUNK, max_iters - steps), scaled=scaled, accel=accel,
-            record=record)
+            app_mask=app_mask, record=record)
         cost_chunks.append(cs)
         res_chunks.append(rs)
         rec_chunks += rec
@@ -263,10 +270,12 @@ def solve_scan(
     patience: int = 40,
     scaled: bool = False,
     accel=None,
+    app_mask: Optional[torch.Tensor] = None,
     device: Device = "cuda",
 ) -> GPScan:
     """Algorithm 1 as one chunk of ``max_iters`` iterations, no early exit
-    and no host read inside: dense histories (:class:`GPScan`)."""
+    and no host read inside: dense histories (:class:`GPScan`).
+    ``app_mask`` as in :func:`solve`."""
     _on_device(inst, device)
     accel = engine.resolve_accel(accel)
     phi = phi0 if phi0 is not None else init_phi(inst)
@@ -274,7 +283,7 @@ def solve_scan(
     carry, cs, rs = engine.scan_chunk(
         inst, carry0, torch.tensor(alpha, dtype=torch.float32, device=inst.device),
         tol, patience, max_iters, allowed_e, allowed_c, length=max_iters,
-        scaled=scaled, accel=accel)
+        scaled=scaled, accel=accel, app_mask=app_mask)
     return GPScan(phi=carry.phi, cost=carry.cost, residual=carry.residual,
                   cost_history=torch.cat([carry0.cost[None], cs]),
                   residual_history=rs, iterations=carry.iters)
@@ -393,3 +402,50 @@ def solve_batched(
     return GPScan(phi=out.phi, cost=out.cost, residual=out.residual,
                   cost_history=cost_hist, residual_history=res_hist,
                   iterations=out.iters, records=recs)
+
+
+def solve_loop(
+    inst: Instance,
+    phi0: Optional[Phi] = None,
+    *,
+    alpha: float = 0.02,
+    max_iters: int = 400,
+    tol: float = 1e-4,
+    allowed_e: Optional[torch.Tensor] = None,
+    allowed_c: Optional[torch.Tensor] = None,
+    patience: int = 40,
+    scaled: bool = False,
+    device: Device = "cuda",
+) -> GPResult:
+    """The per-iteration host loop: one ``engine.gp_step`` a step, its
+    residual and cost read back to test the stop after every step.
+
+    The differential check of :func:`solve`: the same steps and the same
+    float32 stop test (residual at most ``tol``, or no improvement by
+    1e-6 relative in ``patience`` steps), so the same histories, count and
+    strategy, bit for bit.
+    """
+    _on_device(inst, device)
+    phi = phi0 if phi0 is not None else init_phi(inst)
+    cost0 = engine.total_cost(inst, phi).to(torch.float32)
+    alpha_ = torch.tensor(alpha, dtype=torch.float32, device=inst.device)
+    best, stall = cost0, 0
+    costs, residuals = [cost0], []
+    it = 0
+    for it in range(1, max_iters + 1):
+        state = engine.gp_step(inst, phi, alpha_, allowed_e, allowed_c, scaled)
+        phi = state.phi
+        costs.append(state.cost)
+        residuals.append(state.residual)
+        if bool(state.residual <= tol):
+            break
+        if bool(state.cost < best * (1 - 1e-6)):
+            best, stall = state.cost, 0
+        else:
+            stall += 1
+            if stall >= patience:
+                break      # ladder-stationary: no stepsize makes progress
+    return GPResult(phi=phi, cost_history=torch.stack(costs),
+                    residual_history=(torch.stack(residuals) if residuals
+                                      else cost0.new_zeros((0,))),
+                    iterations=it)

@@ -112,3 +112,17 @@ def marginals(inst: Instance, phi: Phi, fl: Optional[Flows] = None,
                * Cp[..., None, None, :] + pdt_next)
     delta_c = torch.where(inst.cpu_allowed()[..., None], delta_c, BIG)
     return Marginals(pdt=pdt, delta_e=delta_e, delta_c=delta_c, Dp=Dp, Cp=Cp)
+
+
+def dD_dphi(inst: Instance, phi: Phi) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form dD/dphi_ij(a,k) of eq. (3): t_i(a,k) * delta_ij(a,k).
+
+    Returns (grad_e (..., A, K1, V, V), grad_c (..., A, K1, V)), zero on
+    the directions that do not exist.
+    """
+    fl = flows(inst, phi)
+    m = marginals(inst, phi, fl)
+    zero = phi.e.new_zeros(())
+    grad_e = fl.t[..., None] * torch.where(inst.adj[..., None, None, :, :], m.delta_e, zero)
+    grad_c = fl.t * torch.where(inst.cpu_allowed()[..., None], m.delta_c, zero)
+    return grad_e, grad_c

@@ -16,8 +16,8 @@ Built-in sweeps:
   * ``seed-ensemble``   — one topology, many random seeds
   * ``mixed-topology``  — heterogeneous Table II topologies in ONE padded
                           batch (the padding invariants)
-  * ``online-trace``    — not ported (the online service, ROADMAP Queue 1
-                          item 9)
+  * ``online-trace``    — the fig6 fleet after each event of an online
+                          trace (``events``): the per-event cold baseline
 
 ``run_sweep`` solves a family batched, ``run_sweep_serial`` one member at a
 time through ``gp.solve``, ``run_sweep_chained`` one at a time with each
@@ -116,9 +116,33 @@ def _mixed_topology(device="cuda", **kw) -> list[Scenario]:
 
 
 def _online_trace(device="cuda", **kw) -> list[Scenario]:
-    raise NotImplementedError(
-        "the online-trace sweep replays the online service's event traces, "
-        "which are not ported yet: ROADMAP Queue 1 item 9")
+    """Event-trace replay family: one Scenario per event of an online
+    trace, holding the event's member after the event.
+
+    Cold-solving this family gives the per-event cold baseline an online
+    solver is measured against.  Every member is padded to the fleet's
+    envelope plus ``spare_apps`` dead application slots, so the family
+    batches as one group.  kwargs: ``scenario`` (Table II name),
+    ``scales`` (the fleet's rate ladder), ``seed``, ``n_events``,
+    ``spare_apps``, and optionally ``trace`` (a list of ``events.Event``)
+    to replay instead of sampling one.
+    """
+    from repro_torch.core import events
+
+    name = kw.get("scenario", "abilene")
+    scales = kw.get("scales", FIG6_SCALES)
+    seed = kw.get("seed", 0)
+    insts = [network.table_ii_instance(name, seed=seed, rate_scale=s, device=device)
+             for s in scales]
+    members = events.pad_fleet(insts, spare_apps=kw.get("spare_apps", 2))
+    trace = kw.get("trace")
+    if trace is None:
+        trace = events.random_trace(members, n_events=kw.get("n_events", 50), seed=seed)
+    return [Scenario(label=f"{name}-ev{t:02d}-m{ev.member}", instance=inst,
+                     meta={"event": type(ev).__name__, "member": ev.member, "t": t,
+                           "table_ii": name, "seed": seed,
+                           "base_scale": scales[ev.member]})
+            for t, (ev, inst, _eff) in enumerate(events.replay(members, trace))]
 
 
 SWEEPS: dict[str, Callable[..., list[Scenario]]] = {
@@ -191,7 +215,7 @@ def solve_family(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the members' application axis sharded over devices) is "
-            "not ported yet: ROADMAP Queue 1 item 11")
+            "not ported yet: ROADMAP Queue 1, Multi-device")
     binst = batch.pad_instances(insts)
     phi0 = batch.pad_phis(phi0s, insts) if phi0s is not None else None
     if masks_fn is not None:

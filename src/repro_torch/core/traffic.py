@@ -215,3 +215,88 @@ def renormalize(inst: Instance, phi: Phi) -> Phi:
     scale = torch.where(degen | (tot <= 0), zero,
                         1.0 / torch.clamp_min(tot, 1e-30))
     return Phi(e=e * scale[..., None], c=c * scale)
+
+
+def repair_phi(inst: Instance, phi: Phi, seed_phi: Optional[Phi] = None,
+               *, min_mass: float = 1e-3) -> Phi:
+    """Project a live strategy onto a (possibly changed) instance.
+
+    The online repair primitive: after a topology event (a link or node
+    failure, an application arrival or departure) a previously feasible
+    ``phi`` may carry mass on directions that no longer exist.  This
+
+      1. zeroes mass on dead links (``~adj``) and disallowed CPU rows,
+      2. reseeds each non-degenerate row left with total mass
+         ``<= min_mass`` from ``seed_phi``,
+      3. renormalizes back onto the simplex constraints (1).
+
+    ``seed_phi`` should be a loop-free strategy of the new instance
+    (``gp.init_phi(inst)``).  Without one, a row is seeded with full local
+    offloading where the CPU direction exists and a uniform spread over the
+    surviving out-links at final stages, which keeps the simplex but not
+    loop-freedom.  A row that kept only a sliver of mass would otherwise be
+    rescaled to route everything there; reseeding it keeps the warm start
+    loop-free.
+    """
+    zero = phi.e.new_zeros(())
+    adj_e = inst.adj[..., None, None, :, :]
+    cpu_ok = inst.cpu_allowed()[..., None]                     # (...,A,K1,1)
+    e = torch.where(adj_e, torch.maximum(phi.e, zero), zero)
+    c = torch.maximum(phi.c, zero) * cpu_ok
+    tot = e.sum(-1) + c
+    empty = (tot <= min_mass) & ~inst.degenerate_mask()        # (...,A,K1,V)
+    if seed_phi is None:
+        out_deg = torch.clamp_min(inst.adj.sum(-1, keepdim=True), 1)
+        uniform = inst.adj.to(e.dtype) / out_deg               # (...,V,V)
+        seed_phi = Phi(e=torch.where(cpu_ok[..., None], zero,
+                                     uniform[..., None, None, :, :].expand(e.shape)),
+                       c=cpu_ok.to(c.dtype).expand(c.shape))
+    e = torch.where(empty[..., None], seed_phi.e, e)
+    c = torch.where(empty, seed_phi.c, c)
+    return renormalize(inst, Phi(e=e, c=c))
+
+
+class StrategyViolations(NamedTuple):
+    """Per-invariant maxima of a live strategy, each (...,) per member.
+
+    An exactly feasible strategy reports 0 (or False) everywhere.
+    ``nonfinite`` flags any nan/inf entry, which every magnitude check
+    would silently pass.
+    """
+
+    simplex: torch.Tensor         # max |row sum - expected| over (a,k,i)
+    dead_link_mass: torch.Tensor  # max phi.e mass on (i,j) not in E
+    dead_app_mass: torch.Tensor   # max mass on rows of dead/padded apps
+    cpu_mass: torch.Tensor        # max phi.c where offloading is disallowed
+    nonfinite: torch.Tensor       # bool: any non-finite entry in phi
+
+
+def strategy_violations(inst: Instance, phi: Phi) -> StrategyViolations:
+    """Every runtime invariant of a strategy: simplex rows (constraint (1)),
+    no mass on dead links, on dead/padded application rows or on CPU rows
+    where offloading is disallowed, and finiteness."""
+    zero = phi.e.new_zeros(())
+    live_app = inst.stage_mask.any(dim=-1)                     # (...,A)
+    dead_e = torch.where(inst.adj[..., None, None, :, :], zero, phi.e.abs())
+    dead_rows = torch.where(live_app[..., None, None], zero,
+                            phi.e.abs().sum(-1) + phi.c.abs())
+    bad_c = torch.where(inst.cpu_allowed()[..., None], zero, phi.c.abs())
+    finite = (torch.isfinite(phi.e).flatten(-4).all(-1)
+              & torch.isfinite(phi.c).flatten(-3).all(-1))
+    return StrategyViolations(
+        simplex=feasibility_violation(inst, phi),
+        dead_link_mass=dead_e.flatten(-4).amax(-1),
+        dead_app_mass=dead_rows.flatten(-3).amax(-1),
+        cpu_mass=bad_c.flatten(-3).amax(-1),
+        nonfinite=~finite,
+    )
+
+
+def capacity_slack(inst: Instance, F: torch.Tensor) -> torch.Tensor:
+    """(...,) min over links of ``theta * capacity - F`` (the M/M/1
+    headroom); negative where a link runs past the queueing model's knee
+    (``costs.saturated``).  A LINEAR link family has no capacity: +inf."""
+    if inst.link_kind == costs.LINEAR:
+        return torch.full(F.shape[:-2], torch.inf, dtype=F.dtype, device=F.device)
+    slack = torch.where(inst.adj, costs._THETA * inst.link_param - F, torch.inf)
+    return slack.flatten(-2).amin(-1)

@@ -20,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, ssm
 
 # Where the parts of the model substrate that are not ported yet are queued.
-TODO = "ROADMAP Queue 1 item 13"
+TODO = "ROADMAP Queue 1, Transformer substrate, the rest"
 
 
 @dataclasses.dataclass(frozen=True)

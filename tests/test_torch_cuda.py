@@ -20,7 +20,11 @@ through the plain versions: 1e-4.  ``lu_solve`` and ``propagate_step``:
 1e-5 relative (another summation order, fused multiply-adds), a singular
 member's inf/nan kept in that member.  The member-batched sweep against
 the one-by-one solves on the card: final costs within 1e-4 (the
-reference's own bound, ``tests/test_blocked_sets.py``).
+reference's own bound, ``tests/test_blocked_sets.py``).  The event layer:
+a fleet on the card replays the CPU fleet's trace to the same bits;
+frozen applications (``app_mask``, plain and accelerated) keep their rows
+bit for bit on every committed iterate, the history within 1e-5 of the
+CPU's; ``gp.solve_loop`` is ``gp.solve`` bit for bit on the card.
 """
 
 import dataclasses
@@ -864,3 +868,85 @@ def test_batched_sweep_matches_serial_on_card(cuda, solver):
         assert b.iterations == s.iterations == 30, sc.label
         rel = abs(b.final_cost - s.final_cost) / abs(s.final_cost)
         assert rel <= 1e-4, (sc.label, b.final_cost, s.final_cost)
+
+
+# ---------------------------------------------------------------------------
+# The event layer and frozen applications on the card
+# ---------------------------------------------------------------------------
+
+def _padded_abilene(device, rate=2.0):
+    from repro_torch.core import events
+
+    return events.pad_fleet([network.table_ii_instance("abilene", rate_scale=rate,
+                                                       device=device)], 2)[0]
+
+
+def test_events_on_card_equal_cpu(cuda):
+    """A fleet on the card replays the CPU fleet's trace to the same bits."""
+    from repro_torch.core import events
+
+    fleets = {d: events.pad_fleet([network.table_ii_instance("abilene", rate_scale=s,
+                                                             device=d)
+                                   for s in (0.5, 1.5, 3.0)], 2) for d in ("cpu", "cuda")}
+    traces = {d: events.random_trace(m, n_events=30, seed=3) for d, m in fleets.items()}
+    assert traces["cpu"] == traces["cuda"]
+    for (_, a, ea), (_, b, eb) in zip(events.replay(fleets["cpu"], traces["cpu"]),
+                                      events.replay(fleets["cuda"], traces["cuda"])):
+        for f in network.DENSE_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+        assert np.array_equal(ea.touched, eb.touched) and ea.shed == eb.shed
+
+
+@pytest.mark.parametrize("accel", [False, True])
+def test_app_mask_solve_on_card_matches_cpu(cuda, accel):
+    """Frozen applications on the card: 14 iterations with the stall latch
+    off, the card's history within 1e-5 of the CPU's, the frozen rows
+    bit-equal to the start's on every committed iterate, the dense route's
+    kernels launched."""
+    mask = torch.tensor([True, True, False, False, False])
+    alpha = torch.tensor(0.1)
+    acc = engine.resolve_accel(accel)
+    hist, phis = {}, {}
+    for dev in ("cpu", "cuda"):
+        inst = _padded_abilene(dev)
+        phi0 = gp.init_phi(inst)
+        carry = engine.init_carry(inst, phi0, acc)
+        m = mask.to(dev)
+        ops.reset_launch_counts()
+        costs = []
+        for _ in range(14):
+            carry, cs, _ = engine.scan_chunk(inst, carry, alpha.to(dev), 0.0, 10**6, 10**6,
+                                             length=1, accel=acc, app_mask=m)
+            costs.append(cs[0])
+            assert torch.equal(carry.phi.e[~m], phi0.e[~m])
+            assert torch.equal(carry.phi.c[~m], phi0.c[~m])
+        hist[dev], phis[dev] = torch.stack(costs), carry.phi
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            assert all(counts[k] >= 14 for k in ("lu_factor", "chain_solve", "tagged"))
+    assert _rel(hist["cuda"], hist["cpu"]) <= 1e-5
+    assert float((phis["cuda"].e.cpu() - phis["cpu"].e).abs().max()) <= 1e-5
+
+
+def test_solve_loop_on_card_is_solve(cuda):
+    inst = network.table_ii_instance("abilene", rate_scale=2.0)
+    kw = dict(alpha=0.1, max_iters=80, patience=15)
+    a, b = gp.solve(inst, **kw), gp.solve_loop(inst, **kw)
+    assert a.iterations == b.iterations
+    assert torch.equal(a.cost_history, b.cost_history)
+    assert torch.equal(a.phi.e, b.phi.e)
+
+
+def test_online_trace_sweep_on_card_matches_serial(cuda):
+    """The online-trace family's first 8 events, batched against one by
+    one, 30 iterations with every latch off: final costs within 1e-4."""
+    from repro_torch.core import scenarios
+
+    kw = dict(alpha=0.1, max_iters=30, tol=-1.0, patience=10**6,
+              sweep_kwargs={"n_events": 8})
+    bat = scenarios.run_sweep("online-trace", **kw)
+    ser = scenarios.run_sweep_serial("online-trace", **kw)
+    assert bat.n_batches == 1 and len(bat.results) == 8
+    for sc, b, s in zip(bat.scenarios, bat.results, ser.results):
+        assert b.iterations == s.iterations == 30, sc.label
+        assert abs(b.final_cost - s.final_cost) <= 1e-4 * abs(s.final_cost), sc.label

@@ -290,7 +290,7 @@ def test_model_init_distributions():
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "mixtral-8x22b", "jamba-v0.1-52b",
                                   "gemma2-9b", "hubert-xlarge", "llava-next-34b"])
 def test_unported_features_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Transformer substrate, the rest"):
         ttr.make_model(name, reduced=True, device="cpu")
 
 

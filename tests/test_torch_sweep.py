@@ -119,11 +119,10 @@ def test_padding_bit_equal_on_mixed_topology():
 
 def test_padding_refuses_what_is_not_ported():
     inst = tnet.with_sparse(tnet.table_ii_instance("abilene", device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, Sparse batching and the metro leftovers"):
         tbatch.pad_instances([inst])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsc.expand("online-trace", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1, Multi-device"):
         tsc.solve_family([tnet.table_ii_instance("abilene", device="cpu")], mesh=object())
     with pytest.raises(ValueError, match="cost families"):
         tbatch.pad_instances([tnet.table_ii_instance(n, device="cpu")
