@@ -243,6 +243,28 @@ phase:
      ``mean_queue_occupancy`` equal, ``mean_delay`` within
      ``_torch_cases.SIM_MEAN_TOL``, ``predicted_delay`` within 1e-5); on
      the port's own GP output Little's law within 30%.
+  16e. online_service — the online GP service (``serve/online.py``) against
+     the reference's ``OnlineSolver`` runs (``tests/data/
+     torch_ref_service.npz``) under ``_torch_cases.event_parity``: every
+     event's exact report fields, costs within 1e-5, counts, and each
+     re-convergence segment's history within 1e-5 with its count replayed
+     by the service's stop test, up to the event's first departure.  The
+     fig6 50-event trace teacher-forced from the stored pre-event state of
+     each event; then free-running from the port's own cold start (each
+     member held up to its first departure, then to the survival claims,
+     and every served cost held one-sidedly to the port's cold accelerated
+     solve of the post-event instance, the reference's stored one where the
+     port's stops uncertified); the four-event sequence of
+     ``tests/test_online.py``; the 100-event chaos trace (the port's
+     ``chaos_trace`` equal to the stored one) with fault injection and
+     ``debug=True``; the parts one after another.  Every departure needs a
+     witness that float32 rounding decides it (``_torch_cases.
+     departure_witness``: the choice tied in float64, a one-ulp move of the
+     departing step's input taking the reference's decision or moving its
+     cost as far, or a one-ulp start taking the reference's branch), and
+     every event is held to the survival claims.  One line per event, the
+     totals beside the reference's, one event profiled (device ms, idle
+     share); ``lu_factor``, ``chain_solve`` and ``tagged`` launch.
   17. sweep_profile — ``torch.profiler`` over 32 batched iterations of the
      Fig. 6 family and of Fig. 5's sw-queue group: device time per step by
      kernel, launches per step, idle share.
@@ -291,6 +313,7 @@ SCALE_DIGESTS = os.path.join(TESTS, "data", "torch_card_dense_scale_digests.json
 BSR_DIGESTS = os.path.join(TESTS, "data", "torch_card_bsr_digests.json")
 GOLDEN_DENSE = os.path.join(TESTS, "data", "torch_ref_dense_sw300.npz")
 GOLDEN_ONLINE = os.path.join(TESTS, "data", "torch_ref_online.npz")
+GOLDEN_SERVICE = os.path.join(TESTS, "data", "torch_ref_service.npz")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -2678,6 +2701,145 @@ def phase_simulate(z):
             f"Little's law on the port's GP output: {own}, D={D}")
 
 
+SERVICE_SCALES = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0)     # the fig6 fleet: FIG6_SCALES
+
+
+def _service_fleet():
+    from repro_torch.core import network
+
+    return [network.table_ii_instance("abilene", seed=0, rate_scale=s) for s in SERVICE_SCALES]
+
+
+def _service_solver(**kw):
+    from repro_torch.serve import OnlineSolver
+
+    return OnlineSolver(_service_fleet(), spare_apps=2, alpha=0.1, tol=1e-4, accel=True, **kw)
+
+
+def _event_profile(solver, ev) -> dict:
+    """Where one event's time goes: the event processed from the same
+    state (a ``checkpoint``) unprofiled and under ``torch.profiler``: wall
+    ms, device ms (every kernel's), launches, and the device's idle share."""
+    import torch
+    from _torch_cases import checkpoint, restore
+    from repro_torch.kernels import ops
+
+    ck = checkpoint(solver)
+
+    def run():
+        restore(solver, ck)
+        return solver.process(ev)
+
+    run()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    kern = device_kernels(run)
+    busy = sum(ms for ms, _ in kern.values())
+    top = sorted(((ms, k) for k, (ms, _) in kern.items()), reverse=True)
+    restore(solver, ck)
+    return {"event": type(ev).__name__, "member": ev.member, "iterations": rep.iterations,
+            "wall_ms": wall, "device_ms": busy if busy > 0 else None,
+            "idle_share": 1 - busy / wall if busy > 0 else None,
+            "ms_per_iteration": wall / max(rep.iterations, 1),
+            "device_launches": sum(n for _, n in kern.values()),
+            "kernel_launches": {k: v for k, v in launches.items() if v},
+            "top": [[k[:80], ms] for ms, k in top[:8]], "card": CARD}
+
+
+def phase_online_service(z):
+    """The online service (``serve/online.py``) against the reference's
+    runs (``tests/data/torch_ref_service.npz``), on the card, one part after
+    another: the fig6 50-event trace teacher-forced at every stored event
+    (``service_forced_pass``), then free-running from the port's own cold
+    start with a cold accelerated solve of each post-event instance beside
+    it; the four-event sequence of ``tests/test_online.py``; the 100-event
+    chaos trace (the port's ``chaos_trace`` equal to the stored one) with
+    ``FaultInjector(seed=1, p_inject=0.15)`` and ``debug=True``.  Every
+    departure from the reference needs a witness that float32 rounding
+    decides it (``_torch_cases.departure_witness``); every event is held to
+    the survival claims and the trace's free run to the one-sided cold
+    parity.  One line per event; totals beside the reference's; one event
+    profiled.  The dense route's kernels must launch."""
+    import torch
+    from _torch_cases import (SEQ_COLD_BOUNDS, event_from_dict, load_member_state, same_event,
+                              service_forced_pass, service_free_run, service_run, service_state)
+    from repro_torch.core import events, faults, network
+    from repro_torch.kernels import ops
+    from repro_torch.serve import OnlineSolver
+
+    breaches, summary = [], {}
+    chaos_js = service_run(z, "chaos100")
+    steps = faults.chaos_trace(events.pad_fleet(_service_fleet(), spare_apps=2),
+                               n_events=100, seed=0)
+    stored = [[event_from_dict(e) for e in b] for b in chaos_js["steps"]]
+    if not (len(steps) == len(stored)
+            and all(len(a) == len(b) and all(map(same_event, a, b))
+                    for a, b in zip(steps, stored))):
+        breaches.append("chaos100: the port's chaos_trace is not the stored one")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver = _service_solver()
+    forced = service_forced_pass(z, "trace50", solver, events.pad_fleet(_service_fleet(), 2))
+    for line in forced["lines"]:
+        emit({"phase": "online_service", "run": "trace50-forced", **line})
+    breaches += forced["breaches"]
+    lines = forced["lines"]
+    summary["trace50-forced"] = {
+        "events": len(lines), "match": sum(ln["verdict"] == "match" for ln in lines),
+        "departs": sum(ln["verdict"] != "match" for ln in lines),
+        "tied": sum(bool(ln["tied"]) for ln in lines if ln["verdict"] != "match"),
+        "witness": {k: sum(ln.get("witness", {}).get("kind") == k for ln in lines)
+                    for k in ("float64", "step", "branch")},
+        "iterations": sum(ln["iterations"] for ln in lines),
+        "reference_iterations": sum(ln["reference_iterations"] for ln in lines),
+        "seconds": time.perf_counter() - t0,
+        "event_seconds": sum(ln["seconds"] for ln in lines),
+        "witness_seconds": sum(ln["witness_seconds"] for ln in lines)}
+    seq_inst = network.table_ii_instance("abilene", seed=0, rate_scale=0.5)
+    runs = {"trace50": dict(make_solver=_service_solver, cold_parity="run_trace"),
+            "seq": dict(make_solver=lambda: OnlineSolver([seq_inst], alpha=0.1, tol=1e-4,
+                                                         accel=True),
+                        cold_parity=SEQ_COLD_BOUNDS),
+            "chaos100": dict(make_solver=lambda: _service_solver(
+                debug=True, fault_injector=faults.FaultInjector(seed=1, p_inject=0.15)),
+                steps=steps)}
+    for part, kw in runs.items():
+        t0 = time.perf_counter()
+        run = service_free_run(z, part, **kw)
+        run.pop("solver")
+        run["final_costs"] = [h.cost for h in run.pop("final")]
+        run["seconds"]["total"] = time.perf_counter() - t0
+        for line in run["lines"]:
+            emit({"phase": "online_service", "run": part + "-free", **line})
+        breaches += run["breaches"]
+        tot = run["totals"]
+        summary[part + "-free"] = {
+            "totals": tot, "reference": run["reference"], "cold": run["cold"],
+            "departed_members": run["diverged"], "seconds": run["seconds"],
+            "ms_per_committed_iteration": run["seconds"]["events"] * 1e3
+            / max(tot["event_iters"], 1), "final_costs": run["final_costs"]}
+    launches = ops.launch_counts()
+    # one event profiled: the trace's first (a 40-iteration warm round),
+    # from the reference's stored state
+    ev = event_from_dict(service_run(z, "trace50")["events"][0])
+    load_member_state(solver, ev.member, events.pad_fleet(_service_fleet(), 2)[ev.member],
+                      service_state(z, "trace50", 0))
+    emit({"phase": "online_service", "part": "profile", **_event_profile(solver, ev)})
+    emit({"phase": "online_service", "card": CARD, "summary": summary,
+          "reference_anchors_jax": json.loads(str(z["meta"]))["anchors"],
+          "launches": launches, "breaches": breaches})
+    require(all(launches[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")),
+            f"online_service: the dense route's kernels launched: {launches}")
+    require(not breaches, f"online_service: {breaches}")
+    return summary
+
+
 PARENT_PATHS = ("solve", "metro", "dense300", "fig6")
 
 
@@ -2755,7 +2917,8 @@ def main(argv=None) -> int:
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
                                                    GOLDEN_SWEEP, GOLDEN_DENSE, GOLDEN_ONLINE,
-                                                   DIGESTS, SCALE_DIGESTS, BSR_DIGESTS))):
+                                                   GOLDEN_SERVICE, DIGESTS, SCALE_DIGESTS,
+                                                   BSR_DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -2805,6 +2968,8 @@ def main(argv=None) -> int:
         ref_online = {k: z[k] for k in z.files}
     phased("online_trace", phase_online_trace, ref_online)
     phased("simulate", phase_simulate, ref_online)
+    with np.load(GOLDEN_SERVICE) as z:
+        phased("online_service", phase_online_service, {k: z[k] for k in z.files})
     emit({"phase": "seconds", **PHASE_SECONDS})
     from _torch_cases import KNOWN_FAULTS
 

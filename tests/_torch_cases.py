@@ -1,5 +1,7 @@
 """Seeded numpy inputs shared by the port's kernel tests (CPU and card)."""
 
+import collections
+import contextlib
 import functools
 import json
 
@@ -415,7 +417,11 @@ def _split(a, b, tol=SYNC_TOL):
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     n = min(len(a), len(b))
-    rel = np.abs(a[:n] - b[:n]) / np.maximum(np.abs(b[:n]), 1e-30)
+    with np.errstate(invalid="ignore"):
+        rel = np.abs(a[:n] - b[:n]) / np.maximum(np.abs(b[:n]), 1e-30)
+    # equal values agree, infinite ones too, and so do two NaNs (the cost of
+    # a corrupted strategy)
+    rel[(a[:n] == b[:n]) | (np.isnan(a[:n]) & np.isnan(b[:n]))] = 0.0
     out = np.flatnonzero(~(rel <= tol))
     split = int(out[0]) if len(out) else None
     return split, float(rel[:split].max()) if split != 0 else 0.0
@@ -796,19 +802,29 @@ def warm_case(z, t: int) -> dict:
 WARM_KNOWN_FAULTS = {"cpu": {"t03": ONLINE_STALL_TRAP}, "cuda": {}}
 
 
-def latch_replay(costs, residuals, *, tol, patience=40, max_iters=400):
+def latch_replay(costs, residuals, *, tol, patience=40, max_iters=400, alphas=None,
+                 moved=None, phi_tol=1e-6):
     """Replay the solve loop's stop test (residual at most ``tol``, no
     improvement above 1e-6 relative for ``patience`` iterations, the
     budget) on a cost and residual history, in float32 as the loop tests
-    it.  Returns ``(stop, flags)``: the iteration the test stops at, or
-    None, and per iteration (improved, residual latched)."""
+    it.  With ``alphas`` and ``moved`` (each step's winning stepsize and
+    committed max|dphi|) also the accelerated solve's phi fixed-point latch
+    (a positive stepsize and a move of at most ``phi_tol``).  Returns
+    ``(stop, flags)``: the iteration the test stops at, or None, and per
+    iteration (improved, residual latched), with the fixed-point latch's
+    flag third where it is replayed."""
     h = np.asarray(costs, dtype=np.float32)
     res = np.asarray(residuals, dtype=np.float32)
     best, stall, flags = h[0], 0, []
     for i in range(1, len(h)):
         imp = bool(h[i] < best * np.float32(1 - 1e-6))
         hit = bool(res[i - 1] <= np.float32(tol))
-        flags.append((imp, hit))
+        flag = (imp, hit)
+        if alphas is not None:
+            fixed = bool(np.float32(alphas[i - 1]) > 0
+                         and np.float32(moved[i - 1]) <= np.float32(phi_tol))
+            flag, hit = flag + (fixed,), hit or fixed
+        flags.append(flag)
         best, stall = (h[i], 0) if imp else (best, stall + 1)
         if hit or stall >= patience or i >= max_iters:
             return i, flags
@@ -870,6 +886,980 @@ def warm_parity(port, ref, *, tol, patience=40, max_iters=400) -> dict:
     return {"ok": not why, "why": why, "iterations": it, "reference_iterations": ref_it,
             "prefix_max_rel": prefix, "final_rel": float(final),
             "first_latch_disagreement": first}
+
+
+# ---------------------------------------------------------------------------
+# The online service against the reference's runs (torch_ref_service.npz,
+# made by tests/data/make_torch_ref_service.py)
+# ---------------------------------------------------------------------------
+
+# HealthReport fields held equal, and those held numerically (costs within
+# SYNC_TOL relative, the iteration count exactly), per event.
+SERVICE_EXACT = ("status", "rungs", "solved_apps", "skipped_apps", "unfroze", "repaired",
+                 "kept_window", "cold_restart", "converged", "rolled_back", "quarantined",
+                 "injected", "shed")
+SERVICE_NUMERIC = ("cost", "iterations", "incumbent_cost")
+SERVICE_COLUMNS = ("cost", "residual", "alpha", "rung", "anderson", "phi_delta")
+# A committed move within this (absolute) of the phi fixed-point latch's
+# 1e-6 decides nothing at float32 precision: strategy entries of order one
+# are spaced 6e-8 apart, and the move is a difference of two of them.
+PHI_TIE = 1.2e-7
+# Seeds of the one-ulp moves and starts (``_mover``) a departure's witness tries.
+WITNESS_SEEDS = range(8)
+
+
+def service_run(z, part: str) -> dict:
+    """One run of the file (``seq``, ``trace50``, ``chaos100``, ``budget``,
+    ``inject/<mode>``) as its JSON."""
+    return json.loads(str(z[f"{part}/json"]))
+
+
+def service_segment(z, part: str, n: int) -> dict:
+    """Re-convergence segment ``n`` of a stored run, with its histories."""
+    seg = dict(service_run(z, part)["segments"][n])
+    cols = {k: z[f"{part}/seg/{n:03d}/{k}"] for k in SERVICE_COLUMNS}
+    seg.update(cols, iterations=seg["iters"],
+               cost_history=np.concatenate([[np.float32(seg["start_cost"])], cols["cost"]]),
+               residual_history=cols["residual"])
+    return seg
+
+
+def service_state(z, part: str, t: int) -> dict:
+    """The stored state of the touched member before event ``t``."""
+    pre = f"{part}/state/{t:02d}/"
+    return {k[len(pre):]: z[k] for k in z.keys() if k.startswith(pre)}
+
+
+def load_member_state(solver, b: int, inst, state: dict) -> None:
+    """Teacher forcing: give the port's service member ``b`` the reference's
+    pre-event instance ``inst``, carry (strategy and Anderson window) and
+    last-known-good checkpoint (``service_state``), on the solver's device."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import network
+    from repro_torch.core.traffic import Phi
+    from repro_torch.serve.online import _take
+
+    dev = solver.device
+
+    def t(name):
+        return torch.from_numpy(np.array(state[name])).to(dev)
+
+    solver._members[b] = inst
+    idx = torch.tensor([b], device=dev)
+    solver.binst = dataclasses.replace(solver.binst, **{
+        f: getattr(solver.binst, f).index_copy(0, idx, getattr(inst, f)[None])
+        for f in network.DENSE_FIELDS})
+    one = _take(solver.carry, b)
+    solver._scatter_carry(b, one._replace(
+        phi=Phi(e=t("phi_e"), c=t("phi_c")), alpha=t("alpha"), ax=t("ax"), af=t("af"),
+        ak=t("ak").to(one.ak.dtype)))
+    solver._lkg_phi[b] = Phi(e=t("lkg_e"), c=t("lkg_c"))
+    solver._lkg_cost[b] = float(state["lkg_cost"])
+    solver._lkg_residual[b] = float(state["lkg_residual"])
+    solver._lkg_cert[b] = bool(state["lkg_cert"])
+
+
+def _mover(seed: int):
+    import torch
+    from repro_torch.core.traffic import Phi
+
+    g = torch.Generator().manual_seed(seed)
+
+    def move(phi):
+        def one(x):
+            u = torch.randint(-1, 2, x.shape, generator=g).to(x.device, x.dtype)
+            return x * (1 + JITTER * u)
+        return Phi(e=one(phi.e), c=one(phi.c))
+    return move
+
+
+def jitter_phi(solver, b: int, seed: int) -> None:
+    """Move every entry of member ``b``'s live strategy by -1, 0 or +1 ulp
+    (``JITTER``, relative; seeded): the same service state but for float32
+    rounding."""
+    from repro_torch.serve.online import _take
+
+    one = _take(solver.carry, b)
+    solver._scatter_carry(b, one._replace(phi=_mover(seed)(one.phi)))
+
+
+@contextlib.contextmanager
+def jittered_cold_starts(seed: int):
+    """Within the block, ``gp.init_phi`` (the service's cold-restart and
+    repair seed) returns its strategy moved by one ulp (seeded)."""
+    from repro_torch.core import gp
+
+    init, move = gp.init_phi, _mover(seed)
+    gp.init_phi = lambda inst: move(init(inst))
+    try:
+        yield
+    finally:
+        gp.init_phi = init
+
+
+class Enough(Exception):
+    """A witness run recorded as far as it is needed (``ServiceRecorder``)."""
+
+
+class ServiceRecorder:
+    """Records the port service's re-convergence segments, as the reference
+    file's: a context manager that wraps ``engine.scan_chunk`` (with
+    ``record=True``) and ``OnlineSolver._converge_one`` / ``_converge`` of
+    the class, so the fleet's cold start is seen too.  ``segments`` is a
+    list of dicts: ``event`` (the solver's report count; -1 in the cold
+    start), ``member``, ``phase``, ``budget``, ``cost_history`` (start
+    first), ``residual_history``, ``iterations``, ``done``, ``stall``, the
+    per-step records (``engine.RECORDS``) of the committed steps, and what
+    ``replay`` needs to reach the segment's carry again: the member's start
+    carry, instance and masks, or, in the fleet's cold start, the batch it
+    ran in (``batch``) and its lane there.
+
+    ``stop_at = (k, step)`` ends the run (``Enough``) once segment ``k`` of a
+    single member has committed more than ``step`` iterations: a witness
+    needs its run only up to the departure it is held against."""
+
+    def __init__(self, stop_at=None):
+        self.segments = []
+        self._chunks = []
+        self.stop_at = stop_at
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        from repro_torch.serve import online
+
+        rec = self
+        self._scan, self._one, self._many = (engine.scan_chunk, online.OnlineSolver._converge_one,
+                                             online.OnlineSolver._converge)
+
+        def scan(*a, **k):
+            k["record"] = True
+            c, cs, rs, r = rec._scan(*a, **k)
+            rec._chunks.append((cs, rs, r))
+            if (rec.stop_at is not None and c.iters.ndim == 0
+                    and len(rec.segments) == rec.stop_at[0] and int(c.iters) > rec.stop_at[1]):
+                rec._last = c
+                raise Enough
+            return c, cs, rs
+
+        def one(solver, b, app_mask, plateau_res, max_iters=None, allowed=None,
+                phase="solve"):
+            from repro_torch.serve.online import _take
+
+            start = float(solver.carry.cost[b])
+            carry0, inst = _take(solver.carry, b), solver.member(b)
+            rec._chunks.clear()
+            try:
+                out = rec._one(solver, b, app_mask, plateau_res, max_iters=max_iters,
+                               allowed=allowed, phase=phase)
+            except Enough:
+                rec._take(solver, [b], None, phase, [start], max_iters, last=rec._last)
+                raise
+            rec._take(solver, [b], None, phase, [start], max_iters)
+            rec.segments[-1].update(start_carry=carry0, instance=inst, allowed=allowed,
+                                    app_mask=None if app_mask is None
+                                    else np.asarray(app_mask, dtype=bool)[0])
+            return out
+
+        def many(solver, members, app_mask=None, plateau_res=None, max_iters=None,
+                 allowed=None, phase="solve"):
+            import torch
+            from repro_torch.core import batch, gp
+
+            if len(members) == 1:
+                return rec._many(solver, members, app_mask, plateau_res, max_iters,
+                                 allowed, phase)
+            # the batch as ``OnlineSolver._converge`` forms it
+            n = len(members)
+            bucket = batch.next_pow2(n)
+            sel = solver._index(list(members) + [members[0]] * (bucket - n))
+            carry_s = gp._members(solver.carry, sel)
+            carry_s = carry_s._replace(
+                done=carry_s.done | (torch.arange(bucket, device=solver.device) >= n))
+            am = None if app_mask is None else torch.as_tensor(np.concatenate(
+                [np.asarray(app_mask, dtype=bool)]
+                + [np.asarray(app_mask, dtype=bool)[:1]] * (bucket - n)), device=solver.device)
+            start = (gp._members(solver.binst, sel), carry_s, am)
+            starts = [float(solver.carry.cost[m]) for m in members]
+            insts = [solver.member(m) for m in members]
+            rec._chunks.clear()
+            out = rec._many(solver, members, app_mask, plateau_res, max_iters, allowed,
+                            phase)
+            rec._take(solver, members, list(range(n)), phase, starts, max_iters)
+            for i, seg in enumerate(rec.segments[-n:]):
+                seg.update(batch=start, lane=i, instance=insts[i])
+            return out
+
+        engine.scan_chunk = scan
+        online.OnlineSolver._converge_one = one
+        online.OnlineSolver._converge = many
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        from repro_torch.serve import online
+
+        engine.scan_chunk = self._scan
+        online.OnlineSolver._converge_one = self._one
+        online.OnlineSolver._converge = self._many
+        return False
+
+    def _take(self, solver, members, lanes, phase, starts, budget, last=None):
+        import torch
+
+        cs = torch.cat([c[0] for c in self._chunks]).cpu().numpy()
+        rs = torch.cat([c[1] for c in self._chunks]).cpu().numpy()
+        recs = {k: torch.cat([c[2][k] for c in self._chunks]).cpu().numpy()
+                for k in self._chunks[0][2]}
+        for i, (b, start) in enumerate(zip(members, starts)):
+            lane = (slice(None),) if lanes is None else (slice(None), lanes[i])
+            carry = solver.carry if last is None else last
+            pick = (lambda x: x) if last is not None else (lambda x: x[b])
+            it = int(pick(carry.iters))
+            seg = {"event": -1 if phase == "cold-start" else len(solver.reports),
+                   "member": int(b), "phase": phase, "budget": budget,
+                   "cost_history": np.concatenate([[np.float32(start)], cs[lane][:it]]),
+                   "residual_history": rs[lane][:it], "iterations": it,
+                   "done": bool(pick(carry.done)), "stall": int(pick(carry.stall)),
+                   "truncated": last is not None}
+            seg.update({k: v[lane][:it] for k, v in recs.items()})
+            self.segments.append(seg)
+        self._chunks.clear()
+
+
+def segment_count(seg, *, tol, patience, max_iters, plateau_res=None, phi_tol=1e-6):
+    """The count the service's stop test and chunk schedule give a segment
+    (``OnlineSolver._chunk_schedule``): the latch replayed on its histories
+    (the phi fixed-point latch included), the segment's budget, and for the
+    warm round the plateau exit (not done one chunk after a first chunk that
+    ended at a residual of at most ``plateau_res``)."""
+    h = np.asarray(seg["cost_history"], dtype=np.float64)
+    stop, _ = latch_replay(h, seg["residual_history"], tol=tol, patience=patience,
+                           max_iters=max_iters, alphas=seg["alpha"], moved=seg["phi_delta"],
+                           phi_tol=phi_tol)
+    budget = max_iters if seg.get("budget") is None else int(seg["budget"])
+    steps, chunk, suspect = 0, 8, False
+    while steps < budget:
+        length = min(chunk, 1 << ((budget - steps).bit_length() - 1))
+        chunk = min(chunk * 2, 64)
+        steps += length
+        if stop is not None and stop <= steps:
+            return stop
+        if suspect:
+            return steps
+        if plateau_res is not None:
+            if steps > len(h) - 1:
+                return None
+            suspect = bool(np.float32(seg["residual_history"][steps - 1])
+                           <= np.float32(plateau_res))
+            plateau_res = None
+    return budget
+
+
+# Departure kinds that are float32 ties in themselves: a rung flip between
+# two rungs whose costs (the port's) lie within FLIP_TIE, an Anderson flip
+# whose mixed and plain costs do, and a count difference where the two
+# latch replays first disagree at a tied test.
+TIED_KINDS = ("rung-tie", "anderson-tie", "latch-tie")
+
+
+def segment_parity(port, ref, *, tol, patience=40, max_iters=400, plateau_res=None) -> dict:
+    """One re-convergence segment of the port's service against the
+    reference's (``ServiceRecorder``, ``service_segment``), under the
+    stall-latch contract: each count reproduced by ``segment_count`` on its
+    own histories (``why`` otherwise), and the cost histories within
+    ``SYNC_TOL`` up to the first departure, ``departure = (step, kind)``:
+
+      * ``rung-tie`` / ``anderson-tie`` — the first differing decision, a
+        rung flip whose two rungs' costs (the port's) lie within
+        ``FLIP_TIE``, or an Anderson flip whose mixed and plain costs do;
+      * ``rung`` / ``anderson`` — such a flip outside ``FLIP_TIE``;
+      * ``part`` — the histories part with every decision the same (an
+        accepted Anderson mix rounding otherwise);
+      * ``latch-tie`` / ``count`` — the counts alone differ, and the two
+        latch replays first disagree at a tie (costs within the latch's own
+        1e-6, a residual within ``GATE_TIE`` of ``tol`` or of
+        ``plateau_res`` at the warm round's plateau probe, a move within
+        ``PHI_TIE`` of the phi latch, on both sides) or not.
+
+    ``departure`` is None where the two are one run.  ``port`` may be
+    another run of the port (a witness), compared the same way."""
+    hist, rh = _hist(port), _hist(ref)
+    it, rit = int(port["iterations"]), int(ref["iterations"])
+    split, prefix = _split(hist, rh)
+    horizon = len(rh) if split is None else split
+    flip = None
+    for j in range(min(horizon, it, rit)):
+        pr, rr = int(port["rung"][j]), int(ref["rung"][j])
+        lc = np.asarray(port["ladder_costs"][j], dtype=np.float64)
+        if pr != rr:
+            a, b = lc[pr], lc[rr]
+            flip = (j + 1, "rung-tie" if a == b or abs(a - b) <= FLIP_TIE * abs(b) else "rung")
+            break
+        if float(port["anderson"][j]) != float(ref["anderson"][j]):
+            plain, mix = lc[pr], float(port["mix_cost"][j])
+            flip = (j + 1, "anderson-tie" if abs(mix - plain) <= FLIP_TIE * abs(plain)
+                    else "anderson")
+            break
+    probe = plateau_res if port.get("phase") == "warm" else None
+    kw = dict(tol=tol, patience=patience, max_iters=max_iters)
+    why = []
+    for name, run, n in (("port", port, it), ("reference", ref, rit)):
+        want = segment_count(run, plateau_res=probe, **kw)
+        if want != n:
+            why.append(f"the {name}'s count {n} is not its stop test's {want}")
+    steps = [e for e in (flip and flip[0], split, min(it, rit) if it != rit else None)
+             if e is not None]
+    first = min(steps) if steps else None
+    departure = None
+    if first is not None:
+        if flip and flip[0] == first:
+            departure = flip
+        elif split == first:
+            departure = (split, "part")
+        else:
+            lat = [latch_replay(h, r["residual_history"], alphas=r["alpha"],
+                                moved=r["phi_delta"], **kw)[1]
+                   for h, r in ((hist, port), (rh, ref))]
+            dis = [i for i, (a, b) in enumerate(zip(*lat), 1) if a != b]
+            if dis:
+                i = dis[0]
+                (ia, ha, fa), (ib, hb, fb) = lat[0][i - 1], lat[1][i - 1]
+                pres, rres = port["residual_history"][i - 1], ref["residual_history"][i - 1]
+                tied = ((ia == ib or abs(hist[i] - rh[i]) < 1e-6 * abs(rh[i]))
+                        and (ha == hb or (abs(pres - tol) <= GATE_TIE
+                                          and abs(rres - tol) <= GATE_TIE))
+                        and (fa == fb or (abs(port["phi_delta"][i - 1] - 1e-6) <= PHI_TIE
+                                          and abs(ref["phi_delta"][i - 1] - 1e-6) <= PHI_TIE)))
+            else:
+                # the same latch flags: the counts part at the plateau probe
+                i = 8
+                tied = (probe is not None and len(hist) > 8 and len(rh) > 8
+                        and abs(port["residual_history"][7] - probe) <= GATE_TIE
+                        and abs(ref["residual_history"][7] - probe) <= GATE_TIE)
+            departure = (i, "latch-tie" if tied else "count")
+    return {"ok": not why, "why": why, "departure": departure, "iterations": it,
+            "reference_iterations": rit, "split": split, "prefix_max_rel": prefix,
+            "final_rel": float(abs(hist[-1] - rh[-1]) / abs(rh[-1])
+                               if np.isfinite(rh[-1]) and rh[-1] else 0.0)}
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, float) or isinstance(b, float):
+        return a == b or (a != a and b != b)
+    return (list(a) if isinstance(a, (list, tuple)) else a) == \
+        (list(b) if isinstance(b, (list, tuple)) else b)
+
+
+def _rel(a, b) -> float:
+    a, b = float(a), float(b)
+    if not (np.isfinite(a) and np.isfinite(b)):
+        return 0.0 if (a == b or (a != a and b != b)) else float("inf")
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def segments_departure(xs, ys, **kw):
+    """The first departure of one event's segment list ``xs`` from ``ys``:
+    ``(segment index, step, kind)`` (``segment_parity``'s, or ``phase`` /
+    ``segments`` where the lists' phases or lengths differ), or None."""
+    for k, (x, y) in enumerate(zip(xs, ys)):
+        if x["phase"] != y["phase"]:
+            return (k, 0, "phase")
+        d = segment_parity(x, y, **kw)["departure"]
+        if d is not None:
+            return (k,) + tuple(d)
+    if len(xs) != len(ys):
+        return (min(len(xs), len(ys)), 0, "segments")
+    return None
+
+
+def event_parity(port_rep, ref_row, port_segs, ref_segs, *, tol, gate_tol,
+                 rollback_margin=1e-4, patience=40, max_iters=400, plateau_res=None,
+                 port_gate=None) -> dict:
+    """One event of the port's service against the reference's.
+
+    ``match`` where the exact fields (``SERVICE_EXACT``) are equal, the
+    costs within ``SYNC_TOL`` relative, the counts equal and every segment
+    one run with the reference's (``segment_parity``: histories within
+    ``SYNC_TOL``, so a served cost apart from the reference's by more comes
+    only after a departure).  Otherwise ``departs``, with the
+    event's first ``departure``: a gate residual within ``GATE_TIE`` of
+    ``gate_tol`` on which the masks differ (``port_gate``: the port's
+    per-app residuals on the reference's strategy; ``gate-tie``), a cost
+    within ``SYNC_TOL`` of the incumbent bound (``incumbent-tie``), or the
+    first segment departure (``segments_departure``); ``(None, 0,
+    "fields")`` where the fields differ and no segment departs.  ``why``
+    lists what breaks the contract whatever the departure: an untied gate
+    difference, a count its own stop test does not give."""
+    rep = ref_row["report"]
+    kw = dict(tol=tol, patience=patience, max_iters=max_iters, plateau_res=plateau_res)
+    mism = [f for f in SERVICE_EXACT if not _same(getattr(port_rep, f), rep[f])]
+    cost_rel = _rel(port_rep.cost, rep["cost"])
+    numeric = []
+    if not cost_rel <= SYNC_TOL:
+        numeric.append(f"cost {port_rep.cost} vs {rep['cost']}")
+    if not _rel(port_rep.incumbent_cost, rep["incumbent_cost"]) <= SYNC_TOL:
+        numeric.append(f"incumbent {port_rep.incumbent_cost} vs {rep['incumbent_cost']}")
+    if port_rep.iterations != rep["iterations"]:
+        numeric.append(f"iterations {port_rep.iterations} vs {rep['iterations']}")
+    why, departure = [], None
+    if port_gate is not None:
+        ref_res = np.asarray(ref_row["gate_residual"], dtype=np.float32)
+        gate = gate_parity(port_gate, ref_res, ref_res > np.float32(gate_tol), gate_tol)
+        if gate["ties"]:
+            departure = (None, 0, "gate-tie")
+        if gate["untied"]:
+            why.append(f"gate masks differ untied at apps {gate['untied']}")
+    bound = float(rep["incumbent_cost"]) * (1 + rollback_margin)
+    if departure is None and np.isfinite(bound) and any(
+            np.isfinite(c) and abs(c - bound) <= SYNC_TOL * abs(bound)
+            for c in [ref_row["reset_cost"], rep["cost"]]
+            + [float(s["cost_history"][-1]) for s in ref_segs]):
+        departure = (None, 0, "incumbent-tie")
+    segs, first = [], None
+    for k, (ps, rs) in enumerate(zip(port_segs, ref_segs)):
+        if ps["phase"] != rs["phase"]:
+            first = (k, 0, "phase")
+            break
+        sp = segment_parity(ps, rs, **kw)
+        segs.append({k2: sp[k2] for k2 in ("ok", "departure", "why", "iterations",
+                                           "reference_iterations", "final_rel")})
+        why += [f"segment {k} ({ps['phase']}): {w}" for w in sp["why"]]
+        if sp["departure"]:
+            first = (k,) + tuple(sp["departure"])
+            break
+    else:
+        if len(port_segs) != len(ref_segs):
+            first = (min(len(port_segs), len(ref_segs)), 0, "segments")
+    if not (first or mism or numeric):
+        departure = None                 # a tie that decided nothing
+    elif departure is None:
+        departure = first or (None, 0, "fields")
+    return {"verdict": "match" if departure is None else "departs",
+            "departure": departure, "tied": bool(departure and departure[2] in
+                                                 TIED_KINDS + ("gate-tie", "incumbent-tie")),
+            "ok": not why, "why": why, "fields": mism, "numeric": numeric,
+            "cost_rel": cost_rel, "segments": segs,
+            "iterations": port_rep.iterations, "reference_iterations": rep["iterations"]}
+
+
+def forced_event(solver, state, inst, ev, *, jitter=None, stop_at=None):
+    """Process ``ev`` on the port's service from a stored pre-event state
+    (``load_member_state``: the member's pre-event instance ``inst``, the
+    reference's carry and checkpoint), or from the solver's own state where
+    ``state`` is None; with a seed ``jitter`` the live strategy and every
+    cold start moved by one ulp (``jitter_phi``, ``jittered_cold_starts``).
+    Returns ``(report, the event's segments (ServiceRecorder), the port's
+    gate residuals on the strategy it starts from, None with ``jitter``)``;
+    with ``stop_at`` (``ServiceRecorder``) the run may end early, with no
+    report, and the solver's state is then the event's half-done one."""
+    from repro_torch.core import conditions, events, gp, traffic
+    from repro_torch.serve.online import _take
+
+    b = ev.member
+    if state is not None:
+        load_member_state(solver, b, inst, state)
+    gate = None
+    if jitter is not None:
+        jitter_phi(solver, b, jitter)
+    else:
+        after, eff = events.apply_event(solver.member(b), ev)
+        phi = _take(solver.carry.phi, b)
+        if eff.topology:
+            phi = traffic.repair_phi(after, phi, gp.init_phi(after))
+        gate = conditions.per_app_residual(after, phi)
+    rep = None
+    with ServiceRecorder(stop_at) as rec, (jittered_cold_starts(jitter) if jitter is not None
+                                           else contextlib.nullcontext()):
+        try:
+            rep = solver.process(ev)
+        except Enough:
+            pass
+    return rep, rec.segments, gate
+
+
+def checkpoint(solver) -> dict:
+    """The service's whole state (its tensors are never written in place,
+    so references suffice), the fault injector's draws included."""
+    import copy
+
+    ck = {k: copy.copy(v) for k, v in vars(solver).items()
+          if k not in ("fault_injector", "metrics", "tracer")}
+    inj = solver.fault_injector
+    if inj is not None:
+        ck["_injector"] = (copy.deepcopy(inj._rng.bit_generator.state), list(inj.log))
+    return ck
+
+
+def restore(solver, ck: dict) -> None:
+    """Put a ``checkpoint`` back."""
+    import copy
+
+    for k, v in ck.items():
+        if k != "_injector":
+            setattr(solver, k, copy.copy(v))
+    if "_injector" in ck:
+        state, log = ck["_injector"]
+        solver.fault_injector._rng.bit_generator.state = copy.deepcopy(state)
+        solver.fault_injector.log = list(log)
+
+
+def replay(solver, seg, ns) -> dict:
+    """The member of a recorded segment (``ServiceRecorder``) after each
+    count of committed steps in ``ns``, reached again in one pass by the
+    same steps from the segment's start: ``{n: (instance, carry, app_mask,
+    (allowed_e, allowed_c))}`` of the one member, without a member dim.  In
+    the fleet's cold start the whole batch runs again and the member's lane
+    is taken."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.serve.online import _take
+
+    if "batch" in seg:
+        inst, carry, am = seg["batch"]
+        ae = ac = None
+    else:
+        inst, carry = seg["instance"], seg["start_carry"]
+        am = (None if seg["app_mask"] is None
+              else torch.as_tensor(seg["app_mask"], device=inst.device))
+        ae, ac = seg["allowed"] or (None, None)
+    out, done = {}, 0
+    for n in sorted(set(ns)):
+        if n > done:
+            carry, *_ = engine.scan_chunk(inst, carry, solver._alpha, solver.tol,
+                                          solver.patience, solver.max_iters, ae, ac,
+                                          length=n - done, accel=solver._accel, app_mask=am)
+            done = n
+        if "batch" in seg:
+            i = seg["lane"]
+            out[n] = (seg["instance"], _take(carry, i), None if am is None else am[i],
+                      (None, None))
+        else:
+            out[n] = (inst, carry, am, (ae, ac))
+    return out
+
+
+def float64_tie(solver, seg, step: int, ref_rung: int, start) -> float:
+    """For a decision flip at ``step`` of a recorded segment: the port's
+    carry before that step (``start``, from ``replay``), and from it the step recomputed in
+    float64 on the CPU (the plain versions of the kernels; the Anderson
+    mix's products in float32, as the engine forms them, its candidate
+    costed in float64).  Returns the relative difference of the two float64
+    choices' costs: for a rung flip the port's and the reference's
+    (``ref_rung``) rungs, for an Anderson flip the mixed and the plain
+    candidate."""
+    from repro_torch.core import engine
+
+    inst, carry, am, (ae, ac) = start
+    i64, _ = _cpu64(inst, carry.phi)
+    # the Anderson window stays float32: the engine forms the mix's products
+    # in float32 by design (``engine._flat_phi``)
+    c64 = type(carry)(*(type(v)(*(x.detach().cpu().double() for x in v))
+                        if isinstance(v, tuple) else
+                        (v.detach().cpu().double() if v.is_floating_point() and v.ndim == 0
+                         else v.detach().cpu())
+                        for v in carry))
+    cpu = (lambda m: None if m is None else m.cpu())
+    *_, rec = engine.scan_chunk(i64, c64, solver._alpha.double().cpu(), solver.tol,
+                                solver.patience, solver.max_iters, cpu(ae), cpu(ac), length=1,
+                                accel=solver._accel, app_mask=cpu(am), record=True)
+    lc = rec["ladder_costs"][0].numpy()
+    if int(seg["rung"][step - 1]) != ref_rung:
+        a, b = lc[int(seg["rung"][step - 1])], lc[ref_rung]
+    else:
+        a, b = float(rec["mix_cost"][0]), lc[int(rec["rung"][0])]
+    return float(abs(a - b) / abs(b))
+
+
+# Departure kinds that are one step's decision (``segment_parity``).
+FLIP_KINDS = ("rung", "rung-tie", "anderson", "anderson-tie")
+# How many steps before a departure the ``step`` witness's runs start.
+STEP_BACKS = (1, 2, 4, 8, 16)
+
+
+def step_witness(solver, ref_seg, step: int, kind: str, back: int, start) -> dict:
+    """A departure at ``step`` of a recorded segment against runs that
+    differ from the port's only by float32 rounding: the port's carry
+    ``back`` steps before it (``start``, from ``replay``) with its strategy
+    moved by one ulp (``_mover``, seeds ``WITNESS_SEEDS``), run ``back``
+    steps.  It holds
+    where a moved run stays on the reference's run up to the step (the same
+    decisions, costs within ``SYNC_TOL``) and there takes the reference's
+    decision (its rung or Anderson verdict: a flip, ``FLIP_KINDS``) or its
+    cost within ``SYNC_TOL`` (a parting, ``part``); and, for a parting with
+    ``back`` 1, where the moved steps' costs spread from the port's own by
+    at least the port's gap to the reference's: float32 rounding of the
+    step's input alone moves its cost as far as the two runs lie apart.
+    Returns ``{"ok", "seed", "back", "spread", "gap"}``."""
+    from repro_torch.core import engine
+
+    inst, carry, am, (ae, ac) = start
+
+    def run(c):
+        _, cs, _, r = engine.scan_chunk(inst, c, solver._alpha, solver.tol, solver.patience,
+                                        solver.max_iters, ae, ac, length=back,
+                                        accel=solver._accel, app_mask=am, record=True)
+        return (cs.cpu().numpy().astype(np.float64), r["rung"].cpu().numpy(),
+                r["anderson"].cpu().numpy())
+
+    def ref(j):
+        return (float(ref_seg["cost_history"][j]), int(ref_seg["rung"][j - 1]),
+                float(ref_seg["anderson"][j - 1]))
+
+    base = run(carry)[0][-1]
+    gap = _rel(base, ref(step)[0])
+    spread = 0.0
+    for seed in WITNESS_SEEDS:
+        costs, rungs, accs = run(carry._replace(phi=_mover(seed)(carry.phi)))
+        on = all(_rel(costs[i], ref(j)[0]) <= SYNC_TOL and (rungs[i], accs[i]) == ref(j)[1:]
+                 for i, j in enumerate(range(step - back + 1, step)))
+        spread = max(spread, _rel(costs[-1], base))
+        want = ref(step)
+        if on and ((kind.startswith("rung") and rungs[-1] == want[1])
+                   or (kind.startswith("anderson") and accs[-1] == want[2])
+                   or (kind == "part" and (_rel(costs[-1], want[0]) <= SYNC_TOL
+                                           or (back == 1 and spread >= gap)))):
+            return {"ok": True, "seed": seed, "back": back, "spread": spread, "gap": gap}
+    return {"ok": False, "seed": None, "back": back, "spread": spread, "gap": gap}
+
+
+def _later(a, b) -> bool:
+    """Departure ``a`` (``segments_departure``; None for none) comes after
+    ``b``."""
+    return a is None or (b is not None and a[:2] > b[:2])
+
+
+def departure_witness(solver, port_segs, ref_segs, runs=(), **kw) -> dict:
+    """The witness an event's departure needs: evidence that float32
+    rounding, not the port, decides it.  Tried in order of cost:
+
+      * ``float64`` — a decision flip whose two choices' costs at the
+        port's carry, recomputed in float64 (``float64_tie``), lie within
+        ``FLIP_TIE`` of each other: the problem itself does not decide;
+      * ``step`` — from the port's carry ``back`` steps before the
+        departure (``STEP_BACKS``, shortest first) with its strategy moved
+        by one ulp, a run that stays on the reference's run and at the
+        departing step takes the reference's decision or cost, or, one step
+        back at a parting, moves that step's cost as far as the reference's
+        lies (``step_witness``);
+      * ``branch`` — one of ``runs`` (an iterable of segment lists of runs
+        of the event that differ from the port's only by float32 rounding:
+        one-ulp starts, another batch composition; made lazily) departs
+        from the reference's run later than the port's run does, or not at
+        all: it takes the reference's branch.
+
+    Returns ``{"ok", "kind", "departure", ...}`` with each witness's
+    numbers."""
+    d = segments_departure(port_segs, ref_segs, **kw)
+    w = {"ok": False, "kind": None, "departure": d}
+    if d is not None and d[1] > 0 and d[2] in FLIP_KINDS + ("part",):
+        seg, rseg = port_segs[d[0]], ref_segs[d[0]]
+        backs = [b for b in STEP_BACKS if b <= d[1]]
+        starts = replay(solver, seg, [d[1] - b for b in backs])
+        if d[2] in FLIP_KINDS:
+            w["float64_rel"] = float64_tie(solver, seg, d[1], int(rseg["rung"][d[1] - 1]),
+                                           starts[d[1] - 1])
+            if w["float64_rel"] <= FLIP_TIE:
+                return dict(w, ok=True, kind="float64")
+        for back in backs:
+            w["step"] = step_witness(solver, rseg, d[1], d[2], back, starts[d[1] - back])
+            if w["step"]["ok"]:
+                return dict(w, ok=True, kind="step")
+    if d is None:
+        return w
+    for n, run in enumerate(runs):
+        if _later(segments_departure(run, ref_segs, **kw), d):
+            return dict(w, ok=True, kind="branch", run=n)
+    return w
+
+
+def service_witness(solver, state, inst, ev, port_segs, ref_segs, **kw) -> dict:
+    """``departure_witness`` for one event, its ``branch`` runs from one-ulp
+    starts (``forced_event(jitter=seed)`` from ``state`` / ``inst`` as
+    there, seeds ``WITNESS_SEEDS``, each only as far as the port's
+    departure).  With ``state`` None the runs start from the solver's
+    current state (a ``checkpoint`` before the event), which is put back
+    before each run and left as it was found."""
+    ck = checkpoint(solver) if state is None else None
+    d = segments_departure(port_segs, ref_segs, **kw)
+    stop_at = d[:2] if d is not None and d[1] > 0 else None
+
+    def runs():
+        for seed in WITNESS_SEEDS:
+            if ck is not None:
+                restore(solver, ck)
+            yield forced_event(solver, state, inst, ev, jitter=seed, stop_at=stop_at)[1]
+
+    try:
+        return departure_witness(solver, port_segs, ref_segs, runs(), **kw)
+    finally:
+        if ck is not None:
+            restore(solver, ck)
+
+
+def solve_segment(res, phase="cold-start") -> dict:
+    """A ``gp.solve(record=True)`` result as a segment (``ServiceRecorder``)."""
+    return {"phase": phase, "budget": None, "iterations": int(res.iterations),
+            "cost_history": _arr(res.cost_history), "residual_history":
+            _arr(res.residual_history), **{k: _arr(v) for k, v in res.records.items()}}
+
+
+# tests/test_online.py's bounds on its sequence, per event: the served cost
+# at most this far above the cold accelerated solve, relative
+SEQ_COLD_BOUNDS = (10 * 1e-4, 1e-2, 1e-2, 1e-2)
+
+
+def cold_witness(solver, port_seg, ref_seg, *, alpha, tol, patience=40, max_iters=400,
+                 accel=True, **kw) -> dict:
+    """``departure_witness`` for a member's departure in the fleet's
+    batched cold start, its ``branch`` runs the member solved alone
+    (``gp.solve``, a batch of one: another batch composition than the
+    fleet's) and from one-ulp starts (seeds ``WITNESS_SEEDS``), each only
+    one step past the departure."""
+    from repro_torch.core import gp
+
+    inst = port_seg["instance"]
+    d = segment_parity(port_seg, ref_seg, tol=tol, patience=patience, max_iters=max_iters,
+                       **kw)["departure"]
+    budget = max_iters if d is None else min(max_iters, d[0] + 1)
+
+    def runs():
+        for seed in (None,) + tuple(WITNESS_SEEDS):
+            phi0 = gp.init_phi(inst) if seed is None else _mover(seed)(gp.init_phi(inst))
+            res = gp.solve(inst, phi0, alpha=alpha, tol=tol, patience=patience,
+                           max_iters=budget, accel=accel, record=True,
+                           device=inst.device.type)
+            yield [solve_segment(res)]
+
+    return departure_witness(solver, [port_seg], [ref_seg], runs(), tol=tol,
+                             patience=patience, max_iters=max_iters, **kw)
+
+
+def _line(t, ev, rep, row) -> dict:
+    ref = row["report"]
+    return {"t": t, "event": type(ev).__name__, "member": ev.member, "status": rep.status,
+            "reference_status": ref["status"], "iterations": rep.iterations,
+            "reference_iterations": ref["iterations"], "cost": rep.cost,
+            "reference_cost": ref["cost"], "incumbent_cost": rep.incumbent_cost,
+            "rungs": list(rep.rungs), "reference_rungs": ref["rungs"],
+            "injected": rep.injected, "cold_restart": rep.cold_restart,
+            "wall_s": rep.wall_s}
+
+
+def _witness_line(w) -> dict:
+    out = {k: w.get(k) for k in ("ok", "kind", "run", "float64_rel")}
+    if w.get("step"):
+        out.update(step_back=w["step"]["back"], step_spread=w["step"]["spread"],
+                   step_gap=w["step"]["gap"], step_seed=w["step"]["seed"])
+    return out
+
+
+def survival_breaches(key, solver, rep, *, lkg_margin=1e-4) -> list:
+    """``run_chaos``'s survival claims on one event's report
+    (``benchmarks/online_bench.py``): the served cost at most ``lkg_margin``
+    (relative) above the incumbent unless the event is ``rejected``, and the
+    member left neither corrupt nor non-finite (``verify_member``)."""
+    out = []
+    if (rep.status != "rejected" and np.isfinite(rep.incumbent_cost)
+            and not rep.cost <= rep.incumbent_cost * (1 + lkg_margin)):
+        out.append(f"{key}: served {rep.cost} above the incumbent {rep.incumbent_cost}")
+    h = solver.verify_member(rep.member)
+    if h.corrupt or not np.isfinite(h.cost):
+        out.append(f"{key}: member {rep.member} left corrupt or non-finite: {h}")
+    return out
+
+
+def service_forced_pass(z, part, solver, members, *, events=None, tol=1e-4,
+                        plateau_res=2e-3, lkg_margin=1e-4) -> dict:
+    """Teacher-forced parity over a stored run (``trace50``): every event of
+    ``events`` (default: every stored one) processed by the port's service
+    from the reference's pre-event state (``forced_event``), under
+    ``event_parity`` with the port's gate on the reference's strategy.  An
+    event that departs needs a witness (``service_witness``); every event,
+    departed or not, is held to the survival claims (``survival_breaches``).
+    ``members`` is the run's padded fleet before the first event.  Returns
+    ``{"lines", "breaches"}``."""
+    import time
+
+    from repro_torch.core import events as tev
+
+    js = service_run(z, part)
+    members = list(members)
+    kw = dict(tol=tol, plateau_res=plateau_res)
+    lines, breaches = [], []
+    for t, ev in enumerate(event_from_dict(e) for e in js["events"]):
+        pre = members[ev.member]
+        members[ev.member], _ = tev.apply_event(pre, ev)
+        st = service_state(z, part, t)
+        if (events is not None and t not in events) or not st:
+            continue
+        t0 = time.perf_counter()
+        rep, segs, gate = forced_event(solver, st, pre, ev)
+        secs = time.perf_counter() - t0
+        row = js["per_event"][t]
+        rsegs = [service_segment(z, part, n) for n in row["segments"]]
+        ep = event_parity(rep, row, segs, rsegs, gate_tol=tol, port_gate=gate, **kw)
+        line = dict(_line(t, ev, rep, row), verdict=ep["verdict"], departure=ep["departure"],
+                    tied=ep["tied"], fields=ep["fields"], seconds=secs)
+        breaches += [f"{(part, t)}: {w}" for w in ep["why"]]
+        breaches += survival_breaches((part, t), solver, rep, lkg_margin=lkg_margin)
+        if ep["verdict"] != "match":
+            w = service_witness(solver, st, pre, ev, segs, rsegs, **kw)
+            line["witness"] = _witness_line(w)
+            if not w["ok"]:
+                breaches.append(f"{(part, t)}: departure {ep['departure']} has no witness: "
+                                f"{line['witness']}")
+        line["witness_seconds"] = time.perf_counter() - t0 - secs
+        lines.append(line)
+    return {"lines": lines, "breaches": breaches}
+
+
+def service_free_run(z, part, make_solver, *, alpha=0.1, tol=1e-4, plateau_res=2e-3,
+                     max_iters=400, lkg_margin=1e-4, cold_parity=None, steps=None) -> dict:
+    """A stored run replayed by the port's service from its own cold start
+    (``make_solver()``; ``steps``: the event batches, default the run's
+    events one by one).  Each member is held to the reference under
+    ``event_parity`` (its cold start under ``segment_parity``) up to its
+    first departure, which needs a witness (``service_witness``,
+    ``cold_witness``); every event is held to the survival claims of
+    ``benchmarks/online_bench.py``'s ``run_chaos`` (``survival_breaches``)
+    and the final fleet to no member corrupt or non-finite.  With
+    ``cold_parity`` each event's served cost is also held one-sidedly to a
+    cold accelerated solve of the post-event instance: ``"run_trace"``, at
+    most max(1e-4, the reference's own largest excess on the run) above it
+    (``run_trace``'s parity, relative to max(1, |cold|)); or a list, per
+    event, of the largest ratio ``served / cold - 1`` (``tests/
+    test_online.py``'s bounds on its sequence).  The cold solve is the
+    port's own (``gp.solve_batched``, the members retiring as they stop)
+    where it stops with a certificate (its residual or phi fixed-point
+    latch, replayed on its records), and the reference's stored cold solve
+    of the same instance where the port's stops on its stall latch or
+    budget.  Returns lines, breaches and totals."""
+    import time
+
+    from repro_torch.core import batch, gp
+
+    js = service_run(z, part)
+    key0 = part + "-free"
+    kw = dict(tol=tol, plateau_res=plateau_res, max_iters=max_iters)
+    ref_cold = [service_segment(z, part, n) for n, sg in enumerate(js["segments"])
+                if sg["event"] == -1]
+    breaches, lines, diverged = [], [], {}
+    t0 = time.perf_counter()
+    with ServiceRecorder() as rec:
+        solver = make_solver()
+    cold_start_s = time.perf_counter() - t0
+    cold = []
+    for m, (ps, rs) in enumerate(zip(rec.segments, ref_cold)):
+        sp = segment_parity(ps, rs, **kw)
+        breaches += [f"{(key0, 'cold', m)}: {w}" for w in sp["why"]]
+        entry = {"member": m, "iterations": sp["iterations"],
+                 "reference_iterations": sp["reference_iterations"],
+                 "departure": sp["departure"]}
+        if sp["departure"] is not None:
+            d = (0,) + tuple(sp["departure"])
+            diverged[m] = ("cold",) + d
+            w = cold_witness(solver, ps, rs, alpha=alpha, **kw)
+            entry["witness"] = _witness_line(w)
+            if not w["ok"]:
+                breaches.append(f"{(key0, 'cold', m)}: departure {d} has no witness: "
+                                f"{entry['witness']}")
+        cold.append(entry)
+    rows = js["per_event"]
+    if steps is None:
+        steps = [[event_from_dict(e)] for e in js["events"]]
+    ref_excess = max([0.0] + [(r["report"]["cost"] - r["cold"]["cost"])
+                              / max(1.0, abs(r["cold"]["cost"])) for r in rows if "cold" in r])
+    cold_limit = max(1e-4, ref_excess)
+    t, t_run, worst_excess, after = 0, time.perf_counter(), 0.0, []
+    for group in steps:
+        for ev in group:
+            b = ev.member
+            live = b not in diverged
+            ck = checkpoint(solver) if live else None
+            # segments are recorded only while the member is held to the
+            # reference's (recording costs host time a step)
+            with (ServiceRecorder() if live else contextlib.nullcontext()) as r:
+                rep = solver.process(ev)
+            row = rows[t]
+            line = _line(t, ev, rep, row)
+            if live:
+                rsegs = [service_segment(z, part, n) for n in row["segments"]]
+                ep = event_parity(rep, row, r.segments, rsegs, gate_tol=tol, **kw)
+                breaches += [f"{(key0, t)}: {w}" for w in ep["why"]]
+                line.update(verdict=ep["verdict"], departure=ep["departure"])
+                if ep["verdict"] != "match":
+                    diverged[b] = (t,) + tuple(ep["departure"])
+                    post = checkpoint(solver)
+                    restore(solver, ck)
+                    w = service_witness(solver, None, None, ev, r.segments, rsegs, **kw)
+                    restore(solver, post)
+                    line["witness"] = _witness_line(w)
+                    if not w["ok"]:
+                        breaches.append(f"{(key0, t)}: departure {ep['departure']} has no "
+                                        f"witness: {line['witness']}")
+            breaches += survival_breaches((key0, t), solver, rep, lkg_margin=lkg_margin)
+            if cold_parity is not None:
+                after.append(solver.member(b))
+            lines.append(line)
+            t += 1
+    run_s = time.perf_counter() - t_run
+    if cold_parity is not None:
+        # the port's cold accelerated solve of every post-event instance, in
+        # one batched solve (the members retire as they stop)
+        res = gp.solve_batched(batch.pad_instances(after), alpha=alpha, tol=tol,
+                               max_iters=max_iters, accel=True, record=True,
+                               device=solver.device.type)
+        for t, line in enumerate(lines):
+            c = res.member(t)
+            stop, flags = latch_replay(_hist(c), _arr(c.residual_history), tol=tol,
+                                       max_iters=max_iters, alphas=_arr(c.records["alpha"]),
+                                       moved=_arr(c.records["phi_delta"]))
+            certified = bool(stop == c.iterations and flags and (flags[-1][1] or flags[-1][2]))
+            # an uncertified cold solve (a congested member) is no optimum to
+            # hold the service to: the reference's cold solve of the instance is
+            cold_cost = (c.final_cost if certified or "cold" not in rows[t]
+                         else float(rows[t]["cold"]["cost"]))
+            if cold_parity == "run_trace":
+                excess = (line["cost"] - cold_cost) / max(1.0, abs(cold_cost))
+                limit = cold_limit
+            else:
+                excess, limit = line["cost"] / cold_cost - 1, cold_parity[t]
+            line.update(cold_cost=c.final_cost, cold_iterations=c.iterations,
+                        cold_certified=certified, cold_bound=cold_cost, cold_excess=excess,
+                        cold_limit=limit)
+            worst_excess = max(worst_excess, excess)
+            if not excess <= limit:
+                breaches.append(f"{(key0, t)}: served {line['cost']}, {excess} above the "
+                                f"cold solve's {cold_cost} (limit {limit}; the port's "
+                                f"{c.final_cost}, certified {certified})")
+    final = solver.verify_fleet()
+    for h in final:
+        if h.corrupt or not np.isfinite(h.cost):
+            breaches.append(f"{key0}: member {h.member} ends corrupt or non-finite: {h}")
+
+    def statuses(reps):
+        return dict(collections.Counter(reps))
+    inj = solver.fault_injector
+    return {"lines": lines, "cold": cold, "breaches": breaches,
+            "diverged": {int(k): v for k, v in diverged.items()},
+            "totals": {"event_iters": solver.event_iters, "cold_iters":
+                       [int(x) for x in solver.cold_iters],
+                       "statuses": statuses(r.status for r in solver.reports),
+                       "ladder_hits": dict(solver.ladder_hits),
+                       "quarantines": solver.quarantines,
+                       "rollbacks": sum(r.rolled_back for r in solver.reports),
+                       "injections": None if inj is None else len(inj.log),
+                       "cold_excess_max": worst_excess if cold_parity else None,
+                       "cold_limit": cold_limit if cold_parity == "run_trace" else None},
+            "reference": {"event_iters": js["event_iters"], "cold_iters": js["cold_iters"],
+                          "statuses": statuses(r["report"]["status"] for r in rows),
+                          "ladder_hits": js["ladder_hits"], "quarantines": js["quarantines"],
+                          "rollbacks": sum(r["report"]["rolled_back"] for r in rows),
+                          "injections": len(js.get("injections", []))},
+            "seconds": {"cold_start": cold_start_s, "events": run_s},
+            "solver": solver, "final": final}
 
 
 # ---------------------------------------------------------------------------

@@ -950,3 +950,28 @@ def test_online_trace_sweep_on_card_matches_serial(cuda):
     for sc, b, s in zip(bat.scenarios, bat.results, ser.results):
         assert b.iterations == s.iterations == 30, sc.label
         assert abs(b.final_cost - s.final_cost) <= 1e-4 * abs(s.final_cost), sc.label
+
+
+def test_online_service_seq_on_card(cuda):
+    """The service's four-event sequence of ``tests/test_online.py`` on the
+    card, free-running from its own cold start, against the reference's run
+    (``tests/data/torch_ref_service.npz``): every member event under the
+    service's parity contract up to its first departure, which needs a
+    witness (``_torch_cases.departure_witness``), the survival claims on
+    every event and the reference test's cold bounds; the dense route's
+    kernels launch."""
+    from _torch_cases import SEQ_COLD_BOUNDS, service_free_run
+    from repro_torch.serve import OnlineSolver
+
+    path = os.path.join(os.path.dirname(__file__), "data", "torch_ref_service.npz")
+    with np.load(path) as f:
+        z = {k: f[k] for k in f.files}
+    inst = network.table_ii_instance("abilene", seed=0, rate_scale=0.5)
+    ops.reset_launch_counts()
+    run = service_free_run(z, "seq", lambda: OnlineSolver([inst], alpha=0.1, tol=1e-4,
+                                                          accel=True),
+                           cold_parity=SEQ_COLD_BOUNDS)
+    assert not run["breaches"], run["breaches"]
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")), counts
+    assert run["solver"].device.type == "cuda"
