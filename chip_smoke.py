@@ -265,6 +265,46 @@ phase:
      every event is held to the survival claims.  One line per event, the
      totals beside the reference's, one event profiled (device ms, idle
      share); ``lu_factor``, ``chain_solve`` and ``tagged`` launch.
+  16f. sparse_batch — the metro-mixed family (``metro_instance`` sw and
+     geant at V = 1000, seeds 0 and 1: block degrees 18 and 27) padded
+     into one stacked sparse instance (``hetero_degree="pad"`` where the
+     degrees differ by more than 4x) and solved as one batch, 32 latch-off
+     steps, then member by member: batched within 1e-4 of one by one, the
+     sw seed-0 member within 1e-5 of ``torch_ref_metro_sw1000.npz``'s
+     latch-off history and the geant seed-0 one of
+     ``torch_ref_sparse_batch.npz``'s; only ``bsr_chain`` and
+     ``tagged_nbr`` launch.  Their per-member launches (the ladder's
+     traffic chains, the blocked sets at ``init_phi``) bit-equal to a
+     stride-0 launch a member and to the plain versions: ``kernel`` lines
+     ``metro-mixed-ladder`` / ``metro-mixed`` with the stride's cost a
+     launch (``stride_ms`` against ``stride0_ms``, the same rows and one
+     list repeated, device ms from one trace each).  ms and launches per
+     batched step, device ms and idle share.
+  16g. metro_scale — ``benchmarks/gp_scaling.py``'s metro sweep: ms per
+     iteration (8 latch-off steps, 3 repetitions) on the sparse route and
+     the dense one (``without_sparse``) at V = 300, 600, 1000, sw and
+     geant, and where the sparse route starts to win; reported only.
+  16h. telemetry — the iteration ring: telemetry off against the parent
+     (``tests/data/torch_card_telemetry_off.json``, made by
+     ``scripts/launch_baseline.py`` on the parent's tree): sw-queue,
+     metro-sw and one service event to the same bits, kernel launches and
+     operators issued in the loop (a ``TorchDispatchMode`` count);
+     sw-queue (272 latch-off steps, ``TelemetryConfig(ring=512)``) off and
+     on bit-equal, its ring against the reference's
+     (``tests/data/torch_ref_obs.npz``, ``_torch_cases.ring_parity``),
+     launches and ms per step off and on; metro-sw stepped with the ring on,
+     its ``bs_rounds`` the plain version's rounds on the same iterates; the
+     Fig. 6 family batched with the ring on (100 iterations) against its
+     one-by-one rings within 1e-4; and ``tagged`` with its round count (``kernel`` lines
+     ``*-rounds``: the counts the plain version's, the mask unchanged, the
+     device ms with and without the count).
+  16i. online_telemetry — ``OnlineSolver(telemetry=True, metrics=Metrics(),
+     tracer=Tracer())`` on the fig6 fleet over the first 10 stored trace
+     events beside a telemetry-off service: reports and strategies
+     bit-equal, each event's drained records its served iterations, the
+     cold start recorded, metrics and spans filled in, and the artifacts
+     written to a temporary directory read back by ``obs.report``, whose
+     ``check_bench`` passes against this run's own iteration total.
   17. sweep_profile — ``torch.profiler`` over 32 batched iterations of the
      Fig. 6 family and of Fig. 5's sw-queue group: device time per step by
      kernel, launches per step, idle share.
@@ -314,6 +354,9 @@ BSR_DIGESTS = os.path.join(TESTS, "data", "torch_card_bsr_digests.json")
 GOLDEN_DENSE = os.path.join(TESTS, "data", "torch_ref_dense_sw300.npz")
 GOLDEN_ONLINE = os.path.join(TESTS, "data", "torch_ref_online.npz")
 GOLDEN_SERVICE = os.path.join(TESTS, "data", "torch_ref_service.npz")
+GOLDEN_SPARSE_BATCH = os.path.join(TESTS, "data", "torch_ref_sparse_batch.npz")
+GOLDEN_OBS = os.path.join(TESTS, "data", "torch_ref_obs.npz")
+TELEMETRY_OFF = os.path.join(TESTS, "data", "torch_card_telemetry_off.json")
 
 # The metro phase's final strategy check, entry by entry: strategy entries
 # are fractions in [0, 1] (float32 spacing 6e-8 just below 1), and the
@@ -937,7 +980,7 @@ def _rel_hist(got, want) -> float:
     import torch
 
     got = torch.as_tensor(got, dtype=torch.float64).cpu()
-    want = torch.as_tensor(want, dtype=torch.float64)
+    want = torch.as_tensor(want, dtype=torch.float64).cpu()
     return float(((got - want).abs() / want.abs().clamp_min(1e-9)).max())
 
 
@@ -2840,6 +2883,545 @@ def phase_online_service(z):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Sparse batching and the observability layer
+# ---------------------------------------------------------------------------
+
+METRO_MIXED = (("sw", 0), ("geant", 0), ("sw", 1), ("geant", 1))   # metro-mixed, V = 1000
+METRO_STEPS = 32                  # phase metro's latch-off steps
+SCALE_V = (300, 600, 1000)        # benchmarks/gp_scaling.py's metro sizes
+SCALE_STEPS, SCALE_REPS = 8, 3
+SWQ_TELEMETRY_STEPS = 272         # the reference's sw-queue count (its ring's length)
+FIG6_TELEMETRY_ITERS = 100        # cut from the sweep's 300 to fit the phase's time
+
+
+def _stride_turns(per_member, shared) -> dict:
+    """The per-member launch against the stride-0 launch on the same rows
+    and the same list (the list repeated a member: bit-equal outputs), their
+    device ms a launch (``torch.profiler``, 20 calls each, one trace each):
+    what the member stride costs a launch.  Two traces only: a process
+    that has taken many traces can get empty ones back (``device_kernels``),
+    and the numbers are then None, not a failure."""
+    import torch
+
+    a, b = per_member(), shared()
+    require(all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                            y.view(torch.int32) if y.dtype == torch.float32 else y)
+                for x, y in zip(a, b)),
+            "the per-member launch with one list repeated equals the stride-0 launch")
+    return {"stride0_ms": function_ms(shared)[0], "stride_ms": function_ms(per_member)[0]}
+
+
+def _member_list_rows(binst, phi0) -> dict:
+    """The kernel cases of the per-member lists on the metro-mixed family:
+    ``bsr_chain`` on the ladder's traffic chains (B members x 12 rungs x A)
+    and ``tagged_nbr`` on the blocked sets at ``init_phi``, each one launch
+    bit-equal to a stride-0 launch a member and to the plain version with
+    the same lists, timed (kernel, event, plain ms, the bound) with the
+    stride's cost beside it (``_stride_turns``)."""
+    import torch
+    from repro_torch.core import engine, marginals, traffic
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_solve as ss
+
+    B, V, K = binst.batch_shape[0], binst.V, binst.K1
+    cands = engine.ladder_candidates(binst, phi0, 0.1)[0]
+    base, mult = traffic.chain_inputs(binst.lifted, cands)
+    pe = cands.e.reshape(-1, K, V, V).contiguous()
+    b2, m2 = base.reshape(-1, K, V).contiguous(), mult.reshape(-1, K, V).contiguous()
+    lists, masks = binst.blk_nbr, binst.blk_mask
+    rows, per = pe.shape[0], pe.shape[0] // B
+
+    def new():
+        return ss.chain_solve_bsr(pe, lists, masks, b2, m2, trans=1, with_sweeps=True)
+
+    got, sweeps = new()
+    for b in range(B):
+        r = slice(b * per, (b + 1) * per)
+        one, one_sw = ss.chain_solve_bsr(pe[r], lists[b], masks[b], b2[r], m2[r], trans=1,
+                                         with_sweeps=True)
+        require(torch.equal(got[r].view(torch.int32), one.view(torch.int32))
+                and torch.equal(sweeps[r], one_sw),
+                f"bsr_chain metro-mixed: member {b} bit-equal to its stride-0 launch")
+    bvals = ss.block_values(pe.transpose(-1, -2), lists, masks)
+
+    def plain():
+        return ss.chain_solve_bsr_plain(bvals, lists, b2, m2, with_sweeps=True)
+
+    want, want_sw = plain()
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32))
+            and torch.equal(sweeps, want_sw), "bsr_chain metro-mixed: the plain version's bits")
+    plain_ms = time_ms(plain, reps=3)
+    del bvals, want
+    nnz = masks.flatten(1).sum(1).repeat_interleave(per)                 # (rows,)
+    nbytes = (int(nnz.sum()) * K * 32 * 32 + 3 * b2.numel() + sweeps.numel()) * 4 \
+        + int(masks.sum()) * 8
+    flops = int((sweeps.sum(1) * nnz).sum()) * 32 * 32 * 2
+    b_ms, b_by = bound(nbytes, flops)
+    same, same_mask = (x[:1].expand_as(x).contiguous() for x in (lists, masks))
+    plan = ss.bsr_chain_plan(*lists.shape[1:])
+    bsr = {"shape": [rows, K, *lists.shape[1:], 32, 32], "V": V, "members": B,
+           "member_lists": True, "nonzero_blocks": masks.flatten(1).sum(1).tolist(),
+           "variant": plan["variant"], "cluster": plan["cluster"],
+           "sweeps_total": int(sweeps.sum()), "bit_equal": True, "max_abs_err": 0.0,
+           **timed(new, "bsr_chain"), "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           **_stride_turns(lambda: ss.chain_solve_bsr(pe, same, same_mask, b2, m2, trans=1,
+                                                       with_sweeps=True),
+                           lambda: ss.chain_solve_bsr(pe, lists[0], masks[0], b2, m2, trans=1,
+                                                       with_sweeps=True)),
+           "card": CARD}
+    emit({"phase": "kernel", "name": "bsr_chain", "case": "metro-mixed-ladder", **bsr})
+    del cands, pe, b2, m2
+
+    eps = engine.BLOCK_EPS
+    pdt = marginals.marginals(binst, phi0).pdt
+    pe3, pd2 = phi0.e.reshape(-1, V, V).contiguous(), pdt.reshape(-1, V).contiguous()
+    nbr, nmask = binst.out_nbr, binst.out_mask
+    args = (pe3, pd2, binst.adj, nbr, nmask)
+    got = ss.blocked_nbr(*args, eps=eps, with_rounds=True)
+    want = ss.blocked_nbr_plain(*args, eps=eps, with_rounds=True)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "tagged_nbr metro-mixed: mask, flags and rounds of the plain version")
+    per = pe3.shape[0] // B
+    for b in range(B):
+        r = slice(b * per, (b + 1) * per)
+        one = ss.blocked_nbr(pe3[r], pd2[r], binst.adj[b:b + 1], nbr[b], nmask[b], eps=eps,
+                             with_rounds=True)
+        require(all(torch.equal(x[r], y) for x, y in zip(got, one)),
+                f"tagged_nbr metro-mixed: member {b} bit-equal to its stride-0 launch")
+    edges = nmask.flatten(1).sum(1)
+    same_n, same_m = (x[:1].expand_as(x).contiguous() for x in (nbr, nmask))
+    adj_one = binst.adj[:1].expand_as(binst.adj).contiguous()
+
+    def blocked():
+        return ops.blocked_set_nbr(binst.adj, phi0.e, pdt, nbr, nmask, eps=eps)
+
+    ops.reset_launch_counts()
+    blocked()
+    one_launch = ops.launch_counts()["tagged_nbr"] == 1
+    # the kernel alone in the trace, where the trace shows device events
+    launched = device_kernels(blocked, 20)
+    alone = len(launched) == 1 and "tagged_nbr_mask_kernel" in next(iter(launched))
+    require(one_launch and (alone or not launched),
+            f"tagged_nbr metro-mixed: one launch, the kernel alone: {sorted(launched)}")
+    b_ms, b_by = bound(int(edges.sum()) * per * 4 + pd2.numel() * 4 + binst.adj.numel()
+                       + got[0].numel() + nbr.numel() * 9, 0)
+    ev = time_ms(blocked)
+    kms = sum(ms for ms, _ in launched.values()) / 20 if launched else None
+    tag = {"shape": [pe3.shape[0], V, nbr.shape[-1]], "members": B, "member_lists": True,
+           "edges": edges.tolist(), "rounds_max": int(got[2].max()), "max_abs_err": 0.0,
+           "ms": ev if kms is None else kms, "event_ms": ev,
+           "ms_source": "events" if kms is None else "profiler", "launches_per_call": 1,
+           "plain_ms": time_ms(lambda: ss.blocked_nbr_plain(*args, eps=eps), reps=3),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           **_stride_turns(lambda: ss.blocked_nbr(pe3, pd2, adj_one, same_n, same_m, eps=eps,
+                                                  with_rounds=True),
+                           lambda: ss.blocked_nbr(pe3, pd2, adj_one, nbr[0], nmask[0],
+                                                  eps=eps, with_rounds=True)),
+           "card": CARD}
+    emit({"phase": "kernel", "name": "tagged_nbr", "case": "metro-mixed", **tag})
+    return {"bsr_chain": [bsr], "tagged_nbr": [tag]}
+
+
+def phase_sparse_batch(ref_metro, zsb):
+    """The metro-mixed family (``metro_instance`` sw and geant at V = 1000,
+    seeds 0 and 1) padded into one stacked sparse instance
+    (``batch.pad_instances``, ``hetero_degree="pad"`` where the degrees
+    differ by more than 4x) and solved as one batch, 32 steps with the
+    latch off, then one member at a time.  Held: batched within 1e-4 of one
+    by one; the sw seed-0 member within 1e-5 of the reference's 32-step
+    history (``torch_ref_metro_sw1000.npz``), the geant seed-0 one of
+    ``torch_ref_sparse_batch.npz``'s; only the sparse route's kernels launch;
+    the per-member launches bit-equal to stride-0 launches
+    (``_member_list_rows``).  Reported: ms and launches per batched step,
+    device ms and idle share (``torch.profiler`` over 8 steps)."""
+    import torch
+    from repro_torch.core import batch, gp, network
+    from repro_torch.kernels import ops
+
+    fam = [network.metro_instance(t, 1000, seed=s) for t, s in METRO_MIXED]
+    degs = [i.max_degree for i in fam]
+    policy = "pad" if max(degs) > batch._HETERO_DEGREE_RATIO * min(degs) else "raise"
+    binst = batch.pad_instances(fam, hetero_degree=policy)
+    phi0 = gp.init_phi(binst)
+    kw = dict(alpha=0.1, patience=10**6, tol=0.0)
+    gp.solve_batched(binst, phi0, max_iters=2, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gp.solve_batched(binst, phi0, max_iters=METRO_STEPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    alone = [gp.solve(inst, max_iters=METRO_STEPS, **kw) for inst in fam]
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    # a member whose residual reaches 0 stops early: the batched history
+    # repeats its last value, the one-by-one and the reference's end there
+    counts = [int(res.iterations[b]) for b in range(len(fam))]
+    vs_one = max(_rel_hist(res.cost_history[b, :len(one.cost_history)], one.cost_history)
+                 for b, one in enumerate(alone))
+    sw_ref, geant_ref = ref_metro["latch_off_cost_history"], zsb["geant1000/cost"]
+    sw_rel = _rel_hist(res.cost_history[0, :len(sw_ref)], sw_ref)
+    geant_rel = _rel_hist(res.cost_history[1, :len(geant_ref)], geant_ref)
+    same_counts = (counts == [one.iterations for one in alone]
+                   and counts[0] == int(ref_metro["latch_off_iterations"])
+                   and counts[1] == int(zsb["geant1000/iterations"]))
+    steps = 8
+    kern = device_kernels(lambda: gp.solve_batched(binst, phi0, max_iters=steps, **kw))
+    busy = sum(ms for ms, _ in kern.values()) / steps
+    ms_step = wall / METRO_STEPS * 1e3
+    emit({"phase": "sparse_batch", "family": [f"metro_instance('{t}', 1000, seed={s})"
+                                              for t, s in METRO_MIXED],
+          "max_degree": degs, "block_degree": [i.blk_nbr.shape[1] for i in fam],
+          "hetero_degree": policy, "padded": {"D": binst.out_nbr.shape[-1],
+                                              "BD": binst.blk_nbr.shape[-1]},
+          "steps": METRO_STEPS, "batched_s": wall, "one_by_one_s": wall_one,
+          "ms_per_batched_step": ms_step,
+          "launches_per_step": {k: v / METRO_STEPS for k, v in launches.items() if v},
+          "device_ms_per_step": busy or None, "idle_share": 1 - busy / ms_step if busy else None,
+          "device_launches_per_step": sum(n for _, n in kern.values()) / steps,
+          "iterations": counts, "batched_vs_one_by_one_max_rel": vs_one,
+          "sw0_vs_reference_max_rel": sw_rel,
+          "geant0_vs_reference_max_rel": geant_rel, "card": CARD})
+    require(launches["bsr_chain"] > 0 and launches["tagged_nbr"] > 0
+            and not any(launches[k] for k in ("lu_factor", "chain_solve", "tagged")),
+            f"sparse_batch: the sparse route's kernels alone: {launches}")
+    require(bool(torch.isfinite(res.cost_history).all()), "sparse_batch: finite histories")
+    require(same_counts, f"sparse_batch: counts {counts} those of the one-by-one runs and "
+            "the references'")
+    require(vs_one <= 1e-4, f"sparse_batch: batched vs one by one {vs_one}")
+    require(sw_rel <= 1e-5, f"sparse_batch: sw seed-0 vs the reference {sw_rel}")
+    require(geant_rel <= 1e-5, f"sparse_batch: geant seed-0 vs the reference {geant_rel}")
+    del res, alone
+    return _member_list_rows(binst, phi0)
+
+
+def phase_metro_scale():
+    """``benchmarks/gp_scaling.py``'s metro timing on the card: ms per
+    iteration of ``gp.solve`` (``SCALE_STEPS`` latch-off steps from
+    ``init_phi``, ``SCALE_REPS`` timed repetitions after a warm-up) on the
+    sparse route (``metro_instance``) and the dense one (``without_sparse``)
+    at V = 300, 600 and 1000, sw and geant.  Reported only, with where the
+    sparse route starts to win (``traffic.SPARSE_MIN_V`` is not changed)."""
+    import torch
+    from repro_torch.core import gp, network, traffic
+
+    lines, cross = [], {}
+    for topo in ("sw", "geant"):
+        for V in SCALE_V:
+            sparse = network.metro_instance(topo, V)
+            for route, inst in (("sparse", sparse), ("dense", network.without_sparse(sparse))):
+                require(traffic.resolve_solver("auto", inst)
+                        == ("sparse" if route == "sparse" else "batched_lu"),
+                        f"metro_scale {topo} V={V}: the {route} route")
+                phi0 = gp.init_phi(inst)
+
+                def run():
+                    return gp.solve(inst, phi0, alpha=0.1, max_iters=SCALE_STEPS,
+                                    patience=10**6, tol=0.0)
+
+                run()
+                reps = []
+                for _ in range(SCALE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    reps.append((time.perf_counter() - t0) / SCALE_STEPS * 1e3)
+                line = {"topo": topo, "V": V, "route": route, "ms_per_iteration": reps,
+                        "median": statistics.median(reps)}
+                lines.append(line)
+                emit({"phase": "metro_scale", **line, "card": CARD})
+            del sparse, inst, phi0
+        med = {(ln["V"], ln["route"]): ln["median"] for ln in lines if ln["topo"] == topo}
+        wins = [V for V in SCALE_V if med[(V, "sparse")] < med[(V, "dense")]]
+        cross[topo] = {"sparse_faster_at": wins,
+                       "dense_over_sparse": {V: med[(V, "dense")] / med[(V, "sparse")]
+                                             for V in SCALE_V}}
+    emit({"phase": "metro_scale", "crossover": cross, "sparse_min_v": traffic.SPARSE_MIN_V,
+          "card": CARD})
+    return cross
+
+
+def phase_telemetry(zobs, baseline):
+    """The iteration ring on the card.  sw-queue (``alpha=0.1``, latch
+    off, ``SWQ_TELEMETRY_STEPS`` steps, ``TelemetryConfig(ring=512)``) with
+    telemetry off and on: histories, strategies and counts bit-equal, the
+    ring held to the reference's (``torch_ref_obs.npz``) by
+    ``_torch_cases.ring_parity``; launches per step off and on.  Telemetry
+    off against the parent (``tests/data/torch_card_telemetry_off.json``,
+    ``scripts/launch_baseline.py`` on the parent commit's tree): sw-queue,
+    metro-sw and one service event to the same bits, the same kernel
+    launches and the same operators issued inside the loop.  Metro-sw
+    V = 1000 stepped with the ring on: its ``bs_rounds`` column equal to
+    the plain version's rounds on the same iterates.  The Fig. 6 family
+    batched with the ring on (``FIG6_TELEMETRY_ITERS`` iterations): each
+    member's ring against its one-by-one ring within 1e-4 (the batched
+    bound)."""
+    import numpy as np
+    import torch
+    from _torch_cases import ring_parity
+    from repro_torch import obs
+    from repro_torch.core import batch, engine, gp, marginals, network, scenarios
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_solve as ss
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from launch_baseline import measure
+
+    out = {"card": CARD}
+    cur = measure()
+    diffs = []
+    for path in ("sw-queue", "metro-sw", "service"):
+        for k, v in baseline[path].items():
+            if cur[path].get(k) != v:
+                diffs.append(f"{path}.{k}: {cur[path].get(k)} vs the parent's {v}")
+    out["versus_parent"] = {"change": cur, "differences": diffs}
+    emit({"phase": "telemetry", "part": "off_vs_parent", **out["versus_parent"]})
+    require(not diffs, f"telemetry off against the parent: {diffs}")
+
+    inst = network.table_ii_instance("sw-queue")
+    phi0 = gp.init_phi(inst)
+    cfg = obs.TelemetryConfig(ring=512)
+    kw = dict(alpha=0.1, max_iters=SWQ_TELEMETRY_STEPS, patience=10**6, tol=0.0)
+    runs = {}
+    for name, extra in (("off", {}), ("on", {"telemetry": cfg})):
+        gp.solve(inst, phi0, **dict(kw, max_iters=4), **extra)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = gp.solve(inst, phi0, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        dev, n = function_ms(lambda: gp.solve(inst, phi0, **dict(kw, max_iters=8), **extra), 1)
+        runs[name] = (res, {"ms_per_step": wall / res.iterations * 1e3,
+                            "kernel_launches_per_step": {k: v / res.iterations
+                                                         for k, v in counts.items() if v},
+                            "device_ms_per_step": dev and dev / 8,
+                            "device_launches_per_step": n and n / 8})
+    off, on = runs["off"][0], runs["on"][0]
+    require(on.iterations == off.iterations == SWQ_TELEMETRY_STEPS
+            and torch.equal(on.cost_history, off.cost_history)
+            and torch.equal(on.residual_history, off.residual_history)
+            and torch.equal(on.phi.e, off.phi.e) and torch.equal(on.phi.c, off.phi.c),
+            "telemetry on: the sw-queue trajectory bit-equal to telemetry off")
+    rec = gp.solve(inst, phi0, telemetry=cfg, record=True, **kw)
+    require(torch.equal(rec.telemetry, on.telemetry), "record=True leaves the ring alone")
+    rows = obs.ring_valid(on.telemetry, on.iterations)
+    rep = ring_parity(rows, obs.ring_valid(zobs["swq/ring"], zobs["swq/iterations"]),
+                      rec.records["ladder_costs"].cpu().numpy(),
+                      obs.ring_valid(zobs["swq-sparse/ring"], zobs["swq-sparse/iterations"]))
+    out["sw-queue"] = {"off": runs["off"][1], "on": runs["on"][1], "ring_parity": rep}
+    emit({"phase": "telemetry", "part": "sw-queue", **out["sw-queue"], "card": CARD})
+    require(rep["ok"], f"telemetry sw-queue ring against the reference's: {rep['why']}")
+    del off, on, rec, runs
+
+    metro = network.metro_instance("sw", 1000)
+    mphi = gp.init_phi(metro)
+    mcfg = obs.TelemetryConfig(ring=64)
+    V = metro.V
+    carry = engine.init_carry(metro, mphi, telemetry=mcfg)
+    alpha = torch.tensor(0.1, device=mphi.e.device)
+    plain = []
+    for _ in range(METRO_STEPS):
+        pdt = marginals.marginals(metro, carry.phi).pdt
+        plain.append(int(ss.blocked_nbr_plain(
+            carry.phi.e.reshape(-1, V, V), pdt.reshape(-1, V), metro.adj[None], metro.out_nbr,
+            metro.out_mask, eps=engine.BLOCK_EPS, with_rounds=True)[2].max()))
+        carry, *_ = engine.scan_chunk(metro, carry, alpha, 0.0, 10**6, 10**6, length=1,
+                                      telemetry=mcfg)
+    mrows = obs.ring_valid(carry.tb, carry.iters)
+    mkw = dict(alpha=0.1, max_iters=METRO_STEPS, patience=10**6, tol=0.0)
+    m_on = gp.solve(metro, mphi, telemetry=mcfg, **mkw)
+    m_off = gp.solve(metro, mphi, **mkw)
+    # the ring holds the committed iterations (all 32 at V = 1000, where the
+    # residual never reaches 0)
+    plain = plain[:len(mrows)]
+    out["metro-sw"] = {"bs_rounds": mrows[:, obs.device.COL_BS_ROUNDS].astype(int).tolist(),
+                       "plain_rounds": plain}
+    emit({"phase": "telemetry", "part": "metro-sw", **out["metro-sw"], "card": CARD})
+    require(len(mrows) == int(carry.iters) > 0
+            and mrows[:, obs.device.COL_BS_ROUNDS].astype(int).tolist() == plain,
+            "telemetry metro-sw: the kernel's bs_rounds equal the plain version's")
+    require(torch.equal(m_on.telemetry, carry.tb) and torch.equal(m_on.cost_history,
+                                                                   m_off.cost_history),
+            "telemetry metro-sw: the stepped ring is the solve's; on/off histories equal")
+    del metro, mphi, carry, m_on, m_off
+
+    fam = [sc.instance for sc in scenarios.expand("fig6-congestion")]
+    bkw = dict(alpha=0.1, max_iters=FIG6_TELEMETRY_ITERS, telemetry=cfg)
+    t0 = time.perf_counter()
+    bres = gp.solve_batched(batch.pad_instances(fam), **bkw)
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    worst, lens = 0.0, []
+    for b, inst_b in enumerate(fam):
+        one = gp.solve(inst_b, **bkw)
+        n_b, n_1 = int(bres.iterations[b]), one.iterations
+        rb = obs.ring_valid(bres.telemetry[b], n_b)
+        r1 = obs.ring_valid(one.telemetry, n_1)
+        m = min(len(rb), len(r1))
+        require(len(rb) == min(n_b, cfg.ring) and len(r1) == min(n_1, cfg.ring),
+                f"telemetry fig6 member {b}: a ring row a committed iteration")
+        rel = float(np.max(np.abs(rb[:m, 1] - r1[:m, 1]) / np.abs(r1[:m, 1]), initial=0.0))
+        fin = abs(float(bres.cost[b]) - one.final_cost) / abs(one.final_cost)
+        worst = max(worst, rel, fin)
+        lens.append([n_b, n_1])
+    out["fig6"] = {"batched_s": b_s, "iterations": lens, "cost_column_max_rel": worst}
+    emit({"phase": "telemetry", "part": "fig6-batched", **out["fig6"], "card": CARD})
+    require(worst <= 1e-4, f"telemetry fig6: batched rings vs one by one {worst}")
+    return out
+
+
+def _tagged_rounds_rows() -> list:
+    """``tagged`` with its round count written (the ring's ``bs_rounds``),
+    on the sw-queue 10-iteration iterate (B = 90, V = 100) and the dense
+    route's V = 300 one (``without_sparse(metro_instance("sw", 300))``,
+    B = 9): the counts equal the plain version's, the mask bit-equal to the
+    plain version's and to the launch without the count, and the two
+    launches' device ms (``without_rounds_ms``, ``with_rounds_ms``;
+    ``torch.profiler``, 20 calls, one trace each)."""
+    import torch
+    from repro_torch.core import engine, gp, marginals, network
+    from repro_torch.kernels import blocked_sets as bset
+
+    rows = []
+    eps = engine.BLOCK_EPS
+    for label, inst in (("sw-queue-iterate-rounds", network.table_ii_instance("sw-queue")),
+                        ("dense-V300-iterate-rounds",
+                         network.without_sparse(network.metro_instance("sw", 300)))):
+        phi = gp.solve(inst, alpha=0.1, max_iters=10, patience=10**6, tol=0.0).phi
+        pdt = marginals.marginals(inst, phi).pdt
+        V = inst.V
+        pe3, pd2, adj3 = (x.contiguous() for x in (phi.e.reshape(-1, V, V),
+                                                   pdt.reshape(-1, V), inst.adj.reshape(-1, V, V)))
+
+        def new():
+            return bset.blocked_dense(pe3, pd2, adj3, eps=eps, with_rounds=True)
+
+        def bare():
+            return bset.blocked_dense(pe3, pd2, adj3, eps=eps)
+
+        def plain():
+            return bset.blocked_dense_plain(pe3, pd2, adj3, eps=eps, with_rounds=True)
+
+        mask, rounds = new()
+        pm, pr = plain()
+        require(torch.equal(rounds, pr) and torch.equal(mask, pm) and torch.equal(mask, bare()),
+                f"tagged {label}: the rounds the plain version's, the mask unchanged")
+        without, with_ = function_ms(bare)[0], function_ms(new)[0]
+        ev = time_ms(new)
+        b_ms, b_by = bound(pe3.numel() * 4 + pd2.numel() * 4 + adj3.numel() + mask.numel()
+                           + rounds.numel() * 4, 0)
+        row = {"shape": [pe3.shape[0], V], "rounds_output": True,
+               "rounds_max": int(rounds.max()), "max_abs_err": 0.0,
+               "ms": ev if with_ is None else with_, "event_ms": ev,
+               "ms_source": "events" if with_ is None else "profiler",
+               "plain_ms": time_ms(plain, reps=3), "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by, "without_rounds_ms": without, "with_rounds_ms": with_,
+               "card": CARD}
+        emit({"phase": "kernel", "name": "tagged", "case": label, **row})
+        rows.append(row)
+    return rows
+
+
+def phase_online_telemetry(z):
+    """The fig6 fleet through ``OnlineSolver(telemetry=True,
+    metrics=Metrics(), tracer=Tracer())`` over the first 10 events of the
+    stored 50-event trace, beside a telemetry-off service: every served
+    report and strategy bit-equal; each event's drained records as many as
+    its served iterations, the cold start recorded (each member's first
+    256 iterations, the default ring, the rest counted as dropped); metrics
+    and spans filled in.  The ``events``/``iters``/``metrics``/``trace`` artifacts go
+    to a temporary directory, ``obs.report.build_report`` reads them back,
+    and ``check_bench`` passes against a row made of this run's own
+    iteration total."""
+    import tempfile
+
+    import torch
+    from _torch_cases import event_from_dict, service_run
+    from repro_torch import obs
+    from repro_torch.obs import report as obs_report
+
+    trace = [event_from_dict(e) for e in service_run(z, "trace50")["events"][:10]]
+    t0 = time.perf_counter()
+    off = _service_solver()
+    reps_off = [off.process(ev) for ev in trace]
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    m, tr = obs.Metrics(), obs.Tracer()
+    t0 = time.perf_counter()
+    on = _service_solver(telemetry=True, metrics=m, tracer=tr)
+    reps_on = [on.process(ev) for ev in trace]
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t0
+    same = all(a.iterations == b.iterations and a.status == b.status and a.cost == b.cost
+               and a.rungs == b.rungs and a.residual == b.residual
+               for a, b in zip(reps_off, reps_on))
+    same_phi = all(torch.equal(off.phi(b).e, on.phi(b).e) and torch.equal(off.phi(b).c,
+                                                                        on.phi(b).c)
+                   for b in range(off.B))
+    per_event: dict = {}
+    for rec in on.iter_trace:
+        per_event[rec["event"]] = per_event.get(rec["event"], 0) + 1
+    drained = [per_event.get(t, 0) for t in range(len(trace))]
+    served = [r.iterations for r in reps_on]
+    obs.collect_compile_caches(m)
+    snap = m.snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "fig6-trace10")
+        with open(prefix + ".events.jsonl", "w") as f:
+            for t, r in enumerate(reps_on):
+                f.write(json.dumps({
+                    "t": t, "event": type(r.event).__name__, "member": r.member,
+                    "iterations": r.iterations, "cost": r.cost, "residual": r.residual,
+                    "status": r.status, "rungs": list(r.rungs),
+                    "rung_iters": list(r.rung_iters), "wall_s": r.wall_s,
+                    "solved_apps": r.solved_apps, "skipped_apps": r.skipped_apps,
+                    "cold_restart": r.cold_restart, "rolled_back": r.rolled_back,
+                    "shed": list(r.shed)}) + "\n")
+        with open(prefix + ".iters.jsonl", "w") as f:
+            for rec in on.iter_trace:
+                f.write(json.dumps(rec) + "\n")
+        m.export_json(prefix + ".metrics.json")
+        tr.export_chrome(prefix + ".trace.json")
+        report = obs_report.build_report(obs_report.load_trace(prefix))
+    row = {"bench": "online", "scenario": "fig6-trace10", "solver": "online",
+           "iters": sum(served)}
+    failures = obs_report.check_bench(report, [row], "fig6-trace10")
+    summary = report["summary"]
+    emit({"phase": "online_telemetry", "events": len(trace), "served_iterations": served,
+          "drained_records": drained, "cold_start_records": per_event.get(-1, 0),
+          "cold_iterations": [int(n) for n in on.cold_iters], "reports_bit_equal": same,
+          "strategies_bit_equal": same_phi, "off_s": off_s, "on_s": on_s,
+          "counters": snap["counters"], "gauges": snap["gauges"],
+          "spans": sum(e["ph"] == "X" for e in tr.events),
+          "report_summary": {k: summary[k] for k in ("n_members", "n_events", "event_iters",
+                                                     "iters_recorded", "ring_dropped",
+                                                     "statuses", "wall_s_by_span")},
+          "check_bench": failures, "card": CARD})
+    require(same and same_phi, "online_telemetry: reports and strategies bit-equal to off")
+    require(drained == served, f"online_telemetry: drained {drained} vs served {served}")
+    # a cold start past the ring's rows keeps its first R records and counts
+    # the rest as dropped (truncation, not wrap-around)
+    R = obs.DEFAULT_TELEMETRY.ring
+    kept = sum(min(int(n), R) for n in on.cold_iters)
+    dropped = sum(max(0, int(n) - R) for n in on.cold_iters)
+    require(per_event.get(-1, 0) == kept > 0
+            and snap["counters"].get("telemetry.ring.dropped", 0) == dropped,
+            f"online_telemetry: the cold start recorded ({per_event.get(-1, 0)} records of "
+            f"{kept}, {dropped} dropped)")
+    require(snap["histograms"]["online.event.iters"]["sum"] == sum(served)
+            and any(e["name"].startswith("event:") for e in tr.events),
+            "online_telemetry: metrics and spans filled in")
+    require(not failures and summary["iters_recorded"] == len(on.iter_trace),
+            f"online_telemetry: the report's check: {failures}")
+
+
 PARENT_PATHS = ("solve", "metro", "dense300", "fig6")
 
 
@@ -2917,8 +3499,9 @@ def main(argv=None) -> int:
     if (not os.path.isdir(os.path.join(src, "repro_torch"))
             or not all(os.path.exists(f) for f in (GOLDEN, GOLDEN_METRO, GOLDEN_EDGE,
                                                    GOLDEN_SWEEP, GOLDEN_DENSE, GOLDEN_ONLINE,
-                                                   GOLDEN_SERVICE, DIGESTS, SCALE_DIGESTS,
-                                                   BSR_DIGESTS))):
+                                                   GOLDEN_SERVICE, GOLDEN_SPARSE_BATCH,
+                                                   GOLDEN_OBS, TELEMETRY_OFF, DIGESTS,
+                                                   SCALE_DIGESTS, BSR_DIGESTS))):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path[:0] = [src, TESTS]
@@ -2969,7 +3552,20 @@ def main(argv=None) -> int:
     phased("online_trace", phase_online_trace, ref_online)
     phased("simulate", phase_simulate, ref_online)
     with np.load(GOLDEN_SERVICE) as z:
-        phased("online_service", phase_online_service, {k: z[k] for k in z.files})
+        ref_service = {k: z[k] for k in z.files}
+    phased("online_service", phase_online_service, ref_service)
+    with np.load(GOLDEN_SPARSE_BATCH) as z:
+        ref_sb = {k: z[k] for k in z.files}
+    for name, rows in phased("sparse_batch", phase_sparse_batch, ref_metro, ref_sb).items():
+        kernels[name].extend(rows)
+    phased("metro_scale", phase_metro_scale)
+    with np.load(GOLDEN_OBS) as z:
+        ref_obs = {k: z[k] for k in z.files}
+    with open(TELEMETRY_OFF) as fh:
+        parent_off = json.load(fh)
+    phased("telemetry", phase_telemetry, ref_obs, parent_off)
+    kernels["tagged"].extend(phased("telemetry", _tagged_rounds_rows))
+    phased("online_telemetry", phase_online_telemetry, ref_service)
     emit({"phase": "seconds", **PHASE_SECONDS})
     from _torch_cases import KNOWN_FAULTS
 

@@ -128,9 +128,9 @@ def main() -> int:
 
     vp, i = ctypes.c_void_p, ctypes.c_int
     dense = libs["tagged"].repro_tagged_dense
-    dense.argtypes, dense.restype = [vp] * 5 + [i] * 5 + [ctypes.c_float, i, vp], i
+    dense.argtypes, dense.restype = [vp] * 6 + [i] * 5 + [ctypes.c_float, i, vp], i
     nbr = libs["tagged_nbr"].repro_tagged_nbr
-    nbr.argtypes, nbr.restype = [vp] * 8 + [i] * 6 + [ctypes.c_float, i, vp], i
+    nbr.argtypes, nbr.restype = [vp] * 8 + [i] * 6 + [ctypes.c_float, i, i, vp], i
     eps = engine.BLOCK_EPS
     extra = [int(c) for c in args.clusters.split(",") if c]
     lines = []
@@ -153,9 +153,9 @@ def main() -> int:
                 if sparse:
                     return nbr(pe3.data_ptr(), pd2.data_ptr(), adj3.data_ptr(),
                                inst.out_nbr.data_ptr(), inst.out_mask.data_ptr(), out.data_ptr(),
-                               None, None, B, V, D, per, C, WR, eps, vec, stream)
+                               None, None, B, V, D, per, C, WR, eps, vec, 0, stream)
                 return dense(pe3.data_ptr(), pd2.data_ptr(), adj3.data_ptr(), out.data_ptr(),
-                             None, B, V, per, C, WR, eps, vec, stream)
+                             None, None, B, V, per, C, WR, eps, vec, stream)
 
             if call() != 0:
                 raise RuntimeError(f"{label} C={C}: launch failed")

@@ -1,10 +1,10 @@
 """Instance padding and stacking: a family of scenarios as one stacked Instance.
 
-Port of ``repro.core.batch`` for dense instances.  The paper's evaluation
-(Figs. 5-7) is a statement about families of scenarios.  Every member is
-padded to the family's common (V, A, K1) envelope and the padded fields are
-stacked along a leading member dim; ``gp.solve_batched`` then runs the
-whole family in one member-batched loop.
+Port of ``repro.core.batch``.  The paper's evaluation (Figs. 5-7) is a
+statement about families of scenarios.  Every member is padded to the
+family's common (V, A, K1) envelope and the padded fields are stacked
+along a leading member dim; ``gp.solve_batched`` then runs the whole
+family in one member-batched loop.
 
 Padding invariants (the reference's DESIGN.md §9):
 
@@ -17,6 +17,14 @@ Padding invariants (the reference's DESIGN.md §9):
     them from every direction set.
   * **Cost kinds** select Python code paths and must agree across a batch
     (``scenarios.run_sweep`` groups by kind first).
+  * **Sparse topologies** (``network.with_sparse``) ride along member by
+    member: a padded member's lists are re-derived on its padded adjacency
+    (dead nodes isolated), then padded to the family's degree (columns past
+    a row's degree point at the row's own node, mask False), so
+    ``out_nbr``/``in_nbr`` become ``(B, V, D)`` and ``blk_nbr``
+    ``(B, NB, BD)``; the sparse kernels read each member's own lists.
+    ``hetero_degree`` governs a family whose degrees differ by more than
+    :data:`_HETERO_DEGREE_RATIO`.
 
 Every padded field is bit-equal to the reference's.  The reference's
 ``batch_size(binst)`` is ``binst.batch_shape[0]`` here.
@@ -30,12 +38,19 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.network import DENSE_FIELDS, Instance
+from repro_torch.core import network as network_mod
+from repro_torch.core.network import DENSE_FIELDS, SPARSE_FIELDS, Instance
 from repro_torch.core.traffic import Phi
 
 # Packet-size fill of padded stages: the instances' positive floor, so a
 # padded entry never brings a zero-size degeneracy.
 _L_FILL = 0.01
+
+# Degree spread a sparse family may have under hetero_degree="raise":
+# padding every member's lists to the family's max degree costs O(V * D) a
+# member, so a near-regular member batched with a hub-heavy one would pay
+# the hub's degree.  Above this max / min ratio the caller chooses.
+_HETERO_DEGREE_RATIO = 4
 
 
 def next_pow2(n: int) -> int:
@@ -53,23 +68,28 @@ def _pad_axis(x: torch.Tensor, axis: int, target: int, fill) -> torch.Tensor:
                      dim=axis)
 
 
-def _refuse_sparse(inst: Instance) -> None:
-    if inst.has_sparse:
-        raise NotImplementedError(
-            "batching instances with a sparse topology (the neighbor lists' "
-            "hetero-degree padding) is not ported yet: ROADMAP Queue 1, Sparse "
-            "batching and the metro leftovers; "
-            "strip it with network.without_sparse")
+def _pad_degree(nbr: torch.Tensor, mask: torch.Tensor, D: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad neighbor-list columns to degree ``D`` (self index, mask False)."""
+    n, cur = nbr.shape
+    if cur == D:
+        return nbr, mask
+    self_col = torch.arange(n, dtype=nbr.dtype, device=nbr.device)[:, None].expand(n, D - cur)
+    return torch.cat([nbr, self_col], dim=1), _pad_axis(mask, 1, D, False)
 
 
 def pad_instance(inst: Instance, V: int, A: int, K1: int) -> Instance:
-    """Pad one dense instance to the (V, A, K1) envelope (no member dim)."""
-    _refuse_sparse(inst)
+    """Pad one instance to the (V, A, K1) envelope (no member dim).
+
+    A sparse topology (``inst.has_sparse``) is re-derived on the padded
+    adjacency: dead nodes are isolated (self-pointing, all-masked neighbor
+    rows), so the max degree is unchanged and only the row count grows.
+    """
     if V < inst.V or A < inst.A or K1 < inst.K1:
         raise ValueError(
             f"target shape ({V},{A},{K1}) smaller than instance "
             f"({inst.V},{inst.A},{inst.K1})")
-    return dataclasses.replace(
+    out = dataclasses.replace(
         inst,
         adj=_pad_axis(_pad_axis(inst.adj, 0, V, False), 1, V, False),
         link_param=_pad_axis(_pad_axis(inst.link_param, 0, V, 0.0), 1, V, 0.0),
@@ -84,6 +104,7 @@ def pad_instance(inst: Instance, V: int, A: int, K1: int) -> Instance:
         n_tasks=_pad_axis(inst.n_tasks, 0, A, 0),
         stage_mask=_pad_axis(_pad_axis(inst.stage_mask, 1, K1, False), 0, A, False),
     )
+    return network_mod.with_sparse(out) if inst.has_sparse else out
 
 
 def batch_envelope(insts: Sequence[Instance]) -> tuple[int, int, int]:
@@ -92,32 +113,75 @@ def batch_envelope(insts: Sequence[Instance]) -> tuple[int, int, int]:
             max(i.K1 for i in insts))
 
 
-def pad_instances(insts: Sequence[Instance]) -> Instance:
-    """Stack dense instances into one Instance whose every field has a
-    leading member dim: ``adj (B, V, V)``, ``r (B, A, V)``, ...
+def pad_instances(insts: Sequence[Instance], *, hetero_degree: str = "raise") -> Instance:
+    """Stack instances into one Instance whose every field has a leading
+    member dim: ``adj (B, V, V)``, ``r (B, A, V)``, ...
 
     Members must share ``link_kind``/``comp_kind`` and lie on one device.
+    A sparse topology must be attached to every member or to none (a mixed
+    family raises: stripping it quietly would change the route).  Sparse
+    members' lists are padded to the family's max degree; where the degrees
+    differ by more than :data:`_HETERO_DEGREE_RATIO` x, ``hetero_degree``
+    decides: ``"raise"`` (default) refuses, ``"pad"`` pads anyway (the
+    family stays sparse, the low-degree members pay the high degree),
+    ``"strip"`` drops the sparse topology of the whole family (the dense
+    route).
     """
     if not insts:
         raise ValueError("pad_instances needs at least one instance")
+    if hetero_degree not in ("raise", "pad", "strip"):
+        raise ValueError(
+            f"hetero_degree must be 'raise'|'pad'|'strip', got {hetero_degree!r}")
     kinds = {(i.link_kind, i.comp_kind) for i in insts}
     if len(kinds) > 1:
         raise ValueError(
             f"cannot batch across cost families {sorted(kinds)}; group "
             "instances by (link_kind, comp_kind) first")
     for inst in insts:
-        _refuse_sparse(inst)
         if inst.batch_shape:
             raise ValueError("pad_instances takes unstacked instances")
+    flags = {i.has_sparse for i in insts}
+    if flags == {True, False}:
+        raise ValueError(
+            "cannot batch a mix of sparse and dense members; attach "
+            "network.with_sparse to every member or strip it from all "
+            "(network.without_sparse)")
+    sparse = flags == {True}
+    if sparse:
+        degs = [max(1, i.max_degree) for i in insts]
+        if max(degs) > _HETERO_DEGREE_RATIO * min(degs):
+            if hetero_degree == "strip":
+                insts = [network_mod.without_sparse(i) for i in insts]
+                sparse = False
+            elif hetero_degree == "raise":
+                raise ValueError(
+                    f"heterogeneous max degrees {min(degs)}..{max(degs)} "
+                    f"(> {_HETERO_DEGREE_RATIO}x spread): padding would "
+                    "densify the sparse representation. Pass "
+                    "hetero_degree='pad' to pad anyway or 'strip' to fall "
+                    "back to dense.")
     V, A, K1 = batch_envelope(insts)
     padded = [pad_instance(i, V, A, K1) for i in insts]
+    fields = DENSE_FIELDS
+    if sparse:
+        D = max(p.out_nbr.shape[1] for p in padded)
+        BD = max(p.blk_nbr.shape[1] for p in padded)
+        padded = [
+            dataclasses.replace(
+                p,
+                **dict(zip(("out_nbr", "out_mask"), _pad_degree(p.out_nbr, p.out_mask, D))),
+                **dict(zip(("in_nbr", "in_mask"), _pad_degree(p.in_nbr, p.in_mask, D))),
+                **dict(zip(("blk_nbr", "blk_mask"), _pad_degree(p.blk_nbr, p.blk_mask, BD))))
+            for p in padded]
+        fields = DENSE_FIELDS + SPARSE_FIELDS
     return dataclasses.replace(padded[0], **{
-        f: torch.stack([getattr(p, f) for p in padded]) for f in DENSE_FIELDS})
+        f: torch.stack([getattr(p, f) for p in padded]) for f in fields})
 
 
 def instance_slice(binst: Instance, b: int) -> Instance:
     """Padded member ``b`` of a stacked Instance."""
-    return dataclasses.replace(binst, **{f: getattr(binst, f)[b] for f in DENSE_FIELDS})
+    return dataclasses.replace(binst, **{f: getattr(binst, f)[b]
+                                         for f in network_mod.member_fields(binst)})
 
 
 def pad_phi(phi: Phi, V: int, A: int, K1: int,

@@ -1,8 +1,8 @@
 """One GP step: the fused Algorithm-1 iteration, the acceleration layer and
 the chunk loop body.
 
-Port of ``repro.core.engine`` for one device, without telemetry.  The
-stage solver follows the instance (``traffic.resolve_solver("auto",
+Port of ``repro.core.engine`` for one device.  The stage solver follows
+the instance (``traffic.resolve_solver("auto",
 inst)``).  Per iteration, on the dense
 route (``batched_lu``):
 
@@ -52,6 +52,13 @@ mix) keeps their incoming rows before its flows are measured, so each rung
 costs exactly what it would commit, and the residual ignores their
 directions.  Frozen applications still load the shared F/G measurement.
 This is the residual skip gate of the online re-solve.
+
+**Telemetry** (``telemetry=``, a ``TelemetryConfig``, the reference's
+DESIGN.md §19): the carry's ring ``tb`` takes one row per committed
+iteration (iteration, cost, residual, stepsize, rung, Anderson verdict,
+blocked-set rounds, max|dphi|; ``repro_torch.obs.device``), written on the
+device.  With telemetry off the ring has no rows and the step issues not
+one operation more.
 """
 
 from __future__ import annotations
@@ -69,9 +76,16 @@ from repro_torch.core.traffic import (
 )
 from repro_torch.kernels import blocked_sets as blocked_sets_mod
 from repro_torch.kernels import ops
+from repro_torch.obs.device import (  # noqa: F401  (resolve_telemetry: the reference's re-export)
+    TelemetryConfig, empty_ring, resolve_telemetry, ring_record,
+)
 
 TIE_EPS = 1e-6      # directions within this of the min-delta receive mass
 BLOCK_EPS = 1e-7    # strictness slack for pdt comparisons
+# From this V the reference's dense blocked sets run its Pallas kernel, whose
+# round counter does not leave the kernel: its ring records -1 there, and so
+# does the port's.
+BITSET_ROUNDS_MAX_V = 4096
 
 # Multipliers of alpha tried each iteration; the best candidate wins, and
 # multiplier 0 keeps the cost from ever increasing (monotone descent).
@@ -128,12 +142,15 @@ class GPState(NamedTuple):
     alpha: torch.Tensor      # float32 stepsize of the winning rung
     rung: torch.Tensor       # int64 winning ladder-rung index
     ladder_costs: torch.Tensor  # (..., R) float32 every rung's cost (inf: invalid)
+    # int32 blocked-set fixed-point rounds (the max over a member's (A, K1)
+    # systems), with telemetry's bs_rounds; None otherwise
+    bs_rounds: Optional[torch.Tensor] = None
 
 
 class SolveCarry(NamedTuple):
     """State of the solve loop, all device tensors (no host reads); each
-    field has the member dims in front.  The accel fields are placeholders
-    when their mechanism is off."""
+    field has the member dims in front.  The accel fields and the ring are
+    placeholders when their mechanism is off."""
 
     phi: Phi
     best_cost: torch.Tensor  # float32, monotone-descent tracker
@@ -146,6 +163,7 @@ class SolveCarry(NamedTuple):
     ax: torch.Tensor         # (..., m, N) Anderson iterate window, newest last
     af: torch.Tensor         # (..., m, N) Anderson displacement window
     ak: torch.Tensor         # int64, pairs pushed so far (at most m)
+    tb: torch.Tensor         # (..., R, TEL_WIDTH) telemetry ring (R = 0: off)
 
 
 def _member(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +198,7 @@ def _freeze(app_mask: Optional[torch.Tensor], cand: Phi, phi: Phi,
 # ---------------------------------------------------------------------------
 
 def blocked_sets(inst: Instance, phi: Phi, pdt: torch.Tensor,
-                 method: str = "bitset") -> torch.Tensor:
+                 method: str = "bitset", *, with_rounds: bool = False):
     """(..., A, K1, V, V) bool: j in B_i(a,k).
 
     j is blocked for i at stage (a,k) if (Section IV "Blocked node set"):
@@ -196,22 +214,38 @@ def blocked_sets(inst: Instance, phi: Phi, pdt: torch.Tensor,
     is one launch of the neighbor-list kernel (``ops.blocked_set_nbr``);
     ``"scan"`` is the dense V-round reference in PyTorch.  All give the same
     mask, bit for bit.
+
+    ``with_rounds=True`` also returns the fixed point's round count per
+    member (the max over its (A, K1) systems; int32 with the member dims):
+    written by the same kernel launch (the plain versions count the same
+    rounds), -1 for ``"scan"`` and, as in the reference, for the dense
+    kernel from V = :data:`BITSET_ROUNDS_MAX_V`.
     """
     if method == "bitset" and traffic_mod.resolve_solver("auto", inst) == "sparse":
         method = "nbr"
     if method == "nbr":
-        return ops.blocked_set_nbr(inst.adj, phi.e, pdt, inst.out_nbr, inst.out_mask,
-                                   eps=BLOCK_EPS)
-    if method == "bitset":
-        return ops.blocked_set(inst.adj, phi.e, pdt, eps=BLOCK_EPS)
-    if method != "scan":
+        res = ops.blocked_set_nbr(inst.adj, phi.e, pdt, inst.out_nbr, inst.out_mask,
+                                  eps=BLOCK_EPS, with_rounds=with_rounds)
+    elif method == "bitset":
+        res = ops.blocked_set(inst.adj, phi.e, pdt, eps=BLOCK_EPS, with_rounds=with_rounds)
+    elif method == "scan":
+        route = phi.e > 0.0
+        worse = pdt[..., None, :] > pdt[..., :, None] + BLOCK_EPS     # pdt_q > pdt_p
+        improper = route & worse
+        tagged = blocked_sets_mod.tagged_scan_dense(route, improper)
+        res = ((~inst.adj[..., None, None, :, :]) | improper | worse | tagged[..., None, :])
+        if with_rounds:
+            res = (res, torch.full(phi.e.shape[:-2], -1, dtype=torch.int32,
+                                   device=phi.e.device))
+    else:
         raise ValueError(f"unknown blocked-set method {method!r}")
-    route = phi.e > 0.0
-    worse = pdt[..., None, :] > pdt[..., :, None] + BLOCK_EPS     # pdt_q > pdt_p
-    improper = route & worse
-    tagged = blocked_sets_mod.tagged_scan_dense(route, improper)
-    return ((~inst.adj[..., None, None, :, :]) | improper | worse
-            | tagged[..., None, :])
+    if not with_rounds:
+        return res
+    mask, rounds = res
+    rounds = rounds.flatten(-2).amax(-1)
+    if method == "bitset" and inst.V >= BITSET_ROUNDS_MAX_V:
+        rounds = torch.full_like(rounds, -1)
+    return mask, rounds
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +264,8 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
                       allowed_c: Optional[torch.Tensor] = None,
                       scaled: bool = False,
                       accel: Optional[AccelConfig] = None,
-                      app_mask: Optional[torch.Tensor] = None):
+                      app_mask: Optional[torch.Tensor] = None, *,
+                      with_rounds: bool = False):
     """The projection step's candidates at every ladder rung.
 
     Returns ``(cands, ladder, residual)``: ``cands`` is a :class:`Phi` with
@@ -239,13 +274,16 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
     member), ``residual`` the sufficiency residual of ``phi`` per member.
     R is 12 (:data:`ALPHA_LADDER`), or 4 with ``accel.adaptive_alpha``.
     With ``app_mask`` the frozen applications' rows of every candidate are
-    ``phi``'s and their directions leave the residual.
+    ``phi``'s and their directions leave the residual.  ``with_rounds=True``
+    appends the blocked sets' round counts (:func:`blocked_sets`).
     """
     solver = traffic_mod.resolve_solver("auto", inst)
     fact = traffic_mod.stage_factors(phi.e) if solver == "batched_lu" else None
     fl = flows(inst, phi, fact)
     m = marginals(inst, phi, fl, fact)
-    bset = blocked_sets(inst, phi, m.pdt)
+    bset = blocked_sets(inst, phi, m.pdt, with_rounds=with_rounds)
+    if with_rounds:
+        bset, rounds = bset
 
     adj_e = inst.adj[..., None, None, :, :]
     if allowed_e is not None:
@@ -319,7 +357,7 @@ def ladder_candidates(inst: Instance, phi: Phi, alpha,
         exc_e = torch.where(app_mask[..., None, None, None], exc_e, zero)
         exc_c = torch.where(app_mask[..., None, None], exc_c, zero)
     residual = torch.maximum(exc_e.flatten(-4).amax(-1), exc_c.flatten(-3).amax(-1))
-    return cands, ladder, residual
+    return (cands, ladder, residual, rounds) if with_rounds else (cands, ladder, residual)
 
 
 def _take_rung(x: torch.Tensor, best: torch.Tensor, core: int) -> torch.Tensor:
@@ -333,7 +371,8 @@ def gp_step(inst: Instance, phi: Phi, alpha,
             allowed_c: Optional[torch.Tensor] = None,
             scaled: bool = False,
             accel: Optional[AccelConfig] = None,
-            app_mask: Optional[torch.Tensor] = None) -> GPState:
+            app_mask: Optional[torch.Tensor] = None,
+            telemetry: Optional[TelemetryConfig] = None) -> GPState:
     """One fused GP iteration: project at every ladder rung, keep the best.
 
     A too-aggressive candidate can form a routing loop, whose divergent
@@ -341,10 +380,13 @@ def gp_step(inst: Instance, phi: Phi, alpha,
     such candidates lose it (``torch.argmin`` would return the NaN's index).
     Ties go to the first rung, as in the reference.  Each member picks its
     own rung.  ``app_mask`` ((..., A) bool) freezes the applications where
-    it is False (module docstring).
+    it is False (module docstring).  With ``telemetry.bs_rounds`` the state
+    carries the blocked sets' round counts.
     """
-    cands, ladder, residual = ladder_candidates(
-        inst, phi, alpha, allowed_e, allowed_c, scaled, accel, app_mask)
+    want_rounds = telemetry is not None and telemetry.bs_rounds
+    cands, ladder, residual, *rounds = ladder_candidates(
+        inst, phi, alpha, allowed_e, allowed_c, scaled, accel, app_mask,
+        with_rounds=want_rounds)
     cand_costs = _strategy_cost(inst.lifted, cands)         # (..., R)
     cand_costs = torch.where(torch.isnan(cand_costs), torch.inf, cand_costs)
     best = torch.argmin(cand_costs, dim=-1)
@@ -352,7 +394,8 @@ def gp_step(inst: Instance, phi: Phi, alpha,
                            c=_take_rung(cands.c, best, 3)),
                    cost=_take_rung(cand_costs, best, 0), residual=residual,
                    alpha=_take_rung(ladder.expand(cand_costs.shape), best, 0),
-                   rung=best, ladder_costs=cand_costs)
+                   rung=best, ladder_costs=cand_costs,
+                   bs_rounds=rounds[0] if rounds else None)
 
 
 # ---------------------------------------------------------------------------
@@ -431,8 +474,10 @@ def _push_history(buf: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_carry(inst: Instance, phi: Phi,
-               accel: Optional[AccelConfig] = None) -> SolveCarry:
-    """A fresh carry at ``phi``, with the member dims of ``inst``."""
+               accel: Optional[AccelConfig] = None,
+               telemetry: Optional[TelemetryConfig] = None) -> SolveCarry:
+    """A fresh carry at ``phi``, with the member dims of ``inst``; its ring
+    has ``telemetry.ring`` rows (none with telemetry off)."""
     dev = phi.c.device
     cost0 = total_cost(inst, phi).to(torch.float32)
     bs = cost0.shape
@@ -451,6 +496,7 @@ def init_carry(inst: Instance, phi: Phi,
         ax=torch.zeros(bs + (m, n), dtype=torch.float32, device=dev),
         af=torch.zeros(bs + (m, n), dtype=torch.float32, device=dev),
         ak=int0,
+        tb=empty_ring(telemetry, bs, dev),
     )
 
 
@@ -464,7 +510,8 @@ def reset_carry(inst: Instance, phi: Phi, carry: SolveCarry, *,
     Anderson window and the adaptive stepsize (a small rate change: the
     stale pairs only feed a mix that the safeguard, costed under the new
     instance, may reject); ``keep_window=False`` clears them (a topology
-    event, where the fixed-point map itself changed).
+    event, where the fixed-point map itself changed).  The ring restarts
+    with the iteration count: a caller drains it first (``serve/online.py``).
     """
     cost0 = total_cost(inst, phi).to(torch.float32)
     int0 = torch.zeros_like(carry.iters)
@@ -480,7 +527,20 @@ def reset_carry(inst: Instance, phi: Phi, carry: SolveCarry, *,
         ax=carry.ax if keep_window else torch.zeros_like(carry.ax),
         af=carry.af if keep_window else torch.zeros_like(carry.af),
         ak=carry.ak if keep_window else int0,
+        tb=torch.zeros_like(carry.tb),
     )
+
+
+def telemetry_row(iters, cost, state: GPState, accept, moved) -> torch.Tensor:
+    """One committed iteration's ring row (..., TEL_WIDTH) float32: its
+    index, the committed cost, the step's residual, stepsize and rung, the
+    Anderson verdict (``accept``; -1 with the mixer off, None), the blocked
+    sets' rounds (-1 where not asked) and the committed move ``moved``."""
+    none = torch.full_like(state.cost, -1.0)
+    cols = (iters, cost, state.residual, state.alpha, state.rung,
+            none if accept is None else accept,
+            none if state.bs_rounds is None else state.bs_rounds, moved)
+    return torch.stack([x.to(torch.float32) for x in cols], dim=-1)
 
 
 # Per-step records of scan_chunk(record=True): the decisions of each step,
@@ -494,7 +554,8 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
                max_iters: int, allowed_e: Optional[torch.Tensor] = None,
                allowed_c: Optional[torch.Tensor] = None, *, length: int,
                scaled: bool = False, accel: Optional[AccelConfig] = None,
-               app_mask: Optional[torch.Tensor] = None, record: bool = False):
+               app_mask: Optional[torch.Tensor] = None, record: bool = False,
+               telemetry: Optional[TelemetryConfig] = None):
     """Advance the solve by ``length`` iterations, entirely on the device.
 
     Once ``done`` latches (residual below tol, no improvement for
@@ -509,7 +570,10 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
     decision (1 accepted, 0 rejected, -1 mixer off), the mixed candidate's
     cost (inf with the mixer off) and the committed move max|dphi|.
     Records of frozen steps are not meaningful.  ``app_mask`` freezes
-    applications (module docstring), in the Anderson mix too.
+    applications (module docstring), in the Anderson mix too.  With
+    ``telemetry`` (the config the carry was made with) each committed
+    iteration writes its row of the carry's ring (module docstring), as the
+    reference's scan body does.
     """
     use_anderson = accel is not None and accel.anderson_m > 0
     use_adaptive = accel is not None and accel.adaptive_alpha
@@ -522,7 +586,7 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
         # carry alpha 0 = unseeded: the first iteration takes the caller's
         alpha_eff = torch.where(c.alpha > 0, c.alpha, alpha) if use_adaptive else alpha
         state = gp_step(inst, c.phi, alpha_eff, allowed_e, allowed_c, scaled, accel,
-                        app_mask)
+                        app_mask, telemetry)
         new_phi, new_cost = state.phi, state.cost
         ax, af, ak = c.ax, c.af, c.ak
         accept, cost_mix = None, None
@@ -567,7 +631,7 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
             ax = _choose(frz, c.ax, ax)
             af = _choose(frz, c.af, af)
             ak = torch.where(frz, c.ak, ak)
-        if use_phistop or record:
+        if use_phistop or record or telemetry is not None:
             moved = torch.maximum((new_phi.e - c.phi.e).abs().flatten(-4).amax(-1),
                                   (new_phi.c - c.phi.c).abs().flatten(-3).amax(-1))
         if use_phistop:
@@ -586,9 +650,14 @@ def scan_chunk(inst: Instance, carry: SolveCarry, alpha, tol, patience: int,
                          ("phi_delta", moved)):
                 recs[k].append(v)
 
+        tb = c.tb
+        if telemetry is not None:
+            tb = ring_record(c.tb, c.iters, telemetry_row(c.iters, new_cost, state, accept,
+                                                          moved), ~frz)
+
         c = SolveCarry(phi=phi, best_cost=best, stall=stall, done=done,
                        iters=iters, cost=cost, residual=residual,
-                       alpha=new_alpha, ax=ax, af=af, ak=ak)
+                       alpha=new_alpha, ax=ax, af=af, ak=ak, tb=tb)
         costs_out.append(cost)
         res_out.append(residual)
     if record:

@@ -371,8 +371,8 @@ def pad_fleet(insts: Sequence[Instance], spare_apps: int = 0) -> list[Instance]:
     application slots per member (room for :class:`AppArrival` events).
 
     Members stay separate instances with uniform shapes, so event replay
-    and a solver agree on slot indices.  Dense instances only
-    (``batch.pad_instance`` refuses a sparse topology).
+    and a solver agree on slot indices.  A member's sparse topology is
+    re-derived on its padded adjacency (``batch.pad_instance``).
     """
     V, A, K1 = batch.batch_envelope(insts)
     return [batch.pad_instance(i, V, A + spare_apps, K1) for i in insts]

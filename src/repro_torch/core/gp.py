@@ -16,7 +16,10 @@ three solvers built on the engine's chunk loop (:func:`engine.scan_chunk`):
 
 Each of the first three takes ``accel=`` (the acceleration layer,
 ``engine.resolve_accel``); :func:`solve` and :func:`solve_scan` take
-``app_mask=`` (frozen applications, the online skip gate).
+``app_mask=`` (frozen applications, the online skip gate).  All four take
+``telemetry=`` (``engine.resolve_telemetry``): the iteration ring, returned
+as ``GPResult.telemetry`` / ``GPScan.telemetry`` (``(R, 8)``, a batched
+solve's ``(B, R, 8)``; decode with ``repro_torch.obs.ring_valid``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.core import costs
 from repro_torch.core import engine
-from repro_torch.core.network import DENSE_FIELDS, Device, Instance, resolve_device
+from repro_torch.core.network import Device, Instance, member_fields, resolve_device
 from repro_torch.core.traffic import Phi, renormalize
 
 gp_step = engine.gp_step
@@ -51,6 +54,10 @@ class GPResult:
     # per-step decisions ({name: (iterations, ...)}, engine.RECORDS) when
     # the solve ran with record=True
     records: Optional[dict] = None
+    # the raw (R, TEL_WIDTH) iteration ring when the solve ran with
+    # telemetry (rows past ``iterations`` are zero); None otherwise.
+    # ``trim()`` keeps it as it is.
+    telemetry: Optional[torch.Tensor] = None
 
     def trim(self) -> "GPResult":
         """Cut the histories back to the committed iteration prefix."""
@@ -188,6 +195,7 @@ def solve(
     accel=None,
     app_mask: Optional[torch.Tensor] = None,
     record: bool = False,
+    telemetry=None,
     device: Device = "cuda",
 ) -> GPResult:
     """Run Algorithm 1 until the sufficiency residual falls below tol.
@@ -198,13 +206,15 @@ def solve(
     acceleration layer; ``app_mask`` ((A,) bool) freezes the applications
     where it is False: they keep their rows of ``phi0`` and still load the
     shared flows, and the residual stop ignores them; ``record=True`` keeps
-    each step's decisions (``GPResult.records``).  ``inst`` must lie on
+    each step's decisions (``GPResult.records``); ``telemetry`` keeps the
+    iteration ring (``GPResult.telemetry``).  ``inst`` must lie on
     ``device`` (CUDA unless the caller passes ``device="cpu"``).
     """
     _on_device(inst, device)
     accel = engine.resolve_accel(accel)
+    telemetry = engine.resolve_telemetry(telemetry)
     phi = phi0 if phi0 is not None else init_phi(inst)
-    carry = engine.init_carry(inst, phi, accel)
+    carry = engine.init_carry(inst, phi, accel, telemetry)
     cost0 = carry.cost
     alpha_ = torch.tensor(alpha, dtype=torch.float32, device=inst.device)
     cost_chunks, res_chunks, rec_chunks = [], [], []
@@ -213,7 +223,7 @@ def solve(
         carry, cs, rs, *rec = engine.scan_chunk(
             inst, carry, alpha_, tol, patience, max_iters, allowed_e, allowed_c,
             length=min(_SOLVE_CHUNK, max_iters - steps), scaled=scaled, accel=accel,
-            app_mask=app_mask, record=record)
+            app_mask=app_mask, record=record, telemetry=telemetry)
         cost_chunks.append(cs)
         res_chunks.append(rs)
         rec_chunks += rec
@@ -228,6 +238,7 @@ def solve(
         iterations=int(carry.iters),
         records=({k: torch.cat([r[k] for r in rec_chunks]) for k in engine.RECORDS}
                  if record and rec_chunks else None),
+        telemetry=carry.tb if telemetry is not None else None,
     ).trim()
 
 
@@ -247,6 +258,7 @@ class GPScan(NamedTuple):
     residual_history: torch.Tensor  # (..., max_iters)
     iterations: torch.Tensor        # int64, iterations committed
     records: Optional[dict] = None  # {name: (..., max_iters, ...)} with record=True
+    telemetry: Optional[torch.Tensor] = None  # (..., R, TEL_WIDTH) ring, telemetry on
 
     def member(self, b: int) -> GPResult:
         """Member ``b`` of a batched scan, trimmed (phi still padded)."""
@@ -255,7 +267,9 @@ class GPScan(NamedTuple):
                         residual_history=self.residual_history[b],
                         iterations=int(self.iterations[b]),
                         records=(None if self.records is None else
-                                 {k: v[b] for k, v in self.records.items()})).trim()
+                                 {k: v[b] for k, v in self.records.items()}),
+                        telemetry=(None if self.telemetry is None
+                                   else self.telemetry[b])).trim()
 
 
 def solve_scan(
@@ -271,22 +285,25 @@ def solve_scan(
     scaled: bool = False,
     accel=None,
     app_mask: Optional[torch.Tensor] = None,
+    telemetry=None,
     device: Device = "cuda",
 ) -> GPScan:
     """Algorithm 1 as one chunk of ``max_iters`` iterations, no early exit
     and no host read inside: dense histories (:class:`GPScan`).
-    ``app_mask`` as in :func:`solve`."""
+    ``app_mask`` and ``telemetry`` as in :func:`solve`."""
     _on_device(inst, device)
     accel = engine.resolve_accel(accel)
+    telemetry = engine.resolve_telemetry(telemetry)
     phi = phi0 if phi0 is not None else init_phi(inst)
-    carry0 = engine.init_carry(inst, phi, accel)
+    carry0 = engine.init_carry(inst, phi, accel, telemetry)
     carry, cs, rs = engine.scan_chunk(
         inst, carry0, torch.tensor(alpha, dtype=torch.float32, device=inst.device),
         tol, patience, max_iters, allowed_e, allowed_c, length=max_iters,
-        scaled=scaled, accel=accel, app_mask=app_mask)
+        scaled=scaled, accel=accel, app_mask=app_mask, telemetry=telemetry)
     return GPScan(phi=carry.phi, cost=carry.cost, residual=carry.residual,
                   cost_history=torch.cat([carry0.cost[None], cs]),
-                  residual_history=rs, iterations=carry.iters)
+                  residual_history=rs, iterations=carry.iters,
+                  telemetry=carry.tb if telemetry is not None else None)
 
 
 def _members(x, idx: torch.Tensor):
@@ -295,7 +312,7 @@ def _members(x, idx: torch.Tensor):
         return None
     if isinstance(x, Instance):
         return dataclasses.replace(x, **{f: getattr(x, f).index_select(0, idx)
-                                         for f in DENSE_FIELDS})
+                                         for f in member_fields(x)})
     if isinstance(x, tuple):
         return type(x)(*(_members(v, idx) for v in x))
     return x.index_select(0, idx)
@@ -315,6 +332,7 @@ def solve_batched(
     compact: bool = True,
     accel=None,
     record: bool = False,
+    telemetry=None,
     device: Device = "cuda",
 ) -> GPScan:
     """Solve a stacked family (``batch.pad_instances``, leading member dim
@@ -329,7 +347,11 @@ def solve_batched(
     pads them to a power of two for XLA's compile cache), and a member's
     arithmetic is its own either way.  ``allowed_e``/``allowed_c`` and
     ``phi0`` carry the member dim.  ``record=True`` keeps each step's
-    decisions (``engine.RECORDS``) as ``(B, max_iters, ...)`` tensors.
+    decisions (``engine.RECORDS``) as ``(B, max_iters, ...)`` tensors;
+    ``telemetry`` keeps each member's ring, ``(B, R, TEL_WIDTH)``, carried
+    with its member through the compaction.  A sparse family (members with
+    their own neighbor lists) runs on the sparse route, each member on its
+    own lists.
 
     Returns a :class:`GPScan` with ``phi.e (B, A, K1, V, V)``,
     ``cost``/``residual``/``iterations (B,)``, ``cost_history
@@ -342,9 +364,10 @@ def solve_batched(
     B = binst.batch_shape[0]
     dev = binst.device
     accel = engine.resolve_accel(accel)
+    telemetry = engine.resolve_telemetry(telemetry)
     if phi0 is None:
         phi0 = init_phi(binst)
-    carry = engine.init_carry(binst, phi0, accel)
+    carry = engine.init_carry(binst, phi0, accel, telemetry)
     alpha_ = torch.tensor(alpha, dtype=torch.float32, device=dev)
 
     cost_hist = torch.zeros((B, max_iters + 1), dtype=torch.float32, device=dev)
@@ -362,7 +385,7 @@ def solve_batched(
         chunk = min(chunk * 2, _CHUNK_MAX)
         carry, cs, rs, *rec = engine.scan_chunk(
             inst_p, carry, alpha_, tol, patience, max_iters, ae_p, ac_p,
-            length=length, scaled=scaled, accel=accel, record=record)
+            length=length, scaled=scaled, accel=accel, record=record, telemetry=telemetry)
         lanes = torch.as_tensor(ids, device=dev)
         cost_hist[lanes, steps + 1: steps + 1 + length] = cs.T
         res_hist[lanes, steps: steps + length] = rs.T
@@ -401,7 +424,8 @@ def solve_batched(
         1, torch.minimum(t[:-1], (written - 1).clamp_min(0)[:, None]))
     return GPScan(phi=out.phi, cost=out.cost, residual=out.residual,
                   cost_history=cost_hist, residual_history=res_hist,
-                  iterations=out.iters, records=recs)
+                  iterations=out.iters, records=recs,
+                  telemetry=out.tb if telemetry is not None else None)
 
 
 def solve_loop(
@@ -415,6 +439,7 @@ def solve_loop(
     allowed_c: Optional[torch.Tensor] = None,
     patience: int = 40,
     scaled: bool = False,
+    telemetry=None,
     device: Device = "cuda",
 ) -> GPResult:
     """The per-iteration host loop: one ``engine.gp_step`` a step, its
@@ -423,17 +448,28 @@ def solve_loop(
     The differential check of :func:`solve`: the same steps and the same
     float32 stop test (residual at most ``tol``, or no improvement by
     1e-6 relative in ``patience`` steps), so the same histories, count and
-    strategy, bit for bit.
+    strategy, bit for bit.  ``telemetry`` records each step's row of the
+    ring as :func:`solve` does (the same values, bit for bit).
     """
     _on_device(inst, device)
+    telemetry = engine.resolve_telemetry(telemetry)
     phi = phi0 if phi0 is not None else init_phi(inst)
     cost0 = engine.total_cost(inst, phi).to(torch.float32)
     alpha_ = torch.tensor(alpha, dtype=torch.float32, device=inst.device)
     best, stall = cost0, 0
     costs, residuals = [cost0], []
+    tb = engine.empty_ring(telemetry, (), inst.device)
     it = 0
     for it in range(1, max_iters + 1):
-        state = engine.gp_step(inst, phi, alpha_, allowed_e, allowed_c, scaled)
+        state = engine.gp_step(inst, phi, alpha_, allowed_e, allowed_c, scaled,
+                               telemetry=telemetry)
+        if telemetry is not None:
+            moved = torch.maximum((state.phi.e - phi.e).abs().amax(),
+                                  (state.phi.c - phi.c).abs().amax())
+            at = torch.tensor(it - 1, device=inst.device)
+            tb = engine.ring_record(tb, at, engine.telemetry_row(at, state.cost, state, None,
+                                                                 moved),
+                                    torch.tensor(True, device=inst.device))
         phi = state.phi
         costs.append(state.cost)
         residuals.append(state.residual)
@@ -448,4 +484,4 @@ def solve_loop(
     return GPResult(phi=phi, cost_history=torch.stack(costs),
                     residual_history=(torch.stack(residuals) if residuals
                                       else cost0.new_zeros((0,))),
-                    iterations=it)
+                    iterations=it, telemetry=tb if telemetry is not None else None)

@@ -155,6 +155,16 @@ class Instance:
 # The per-instance tensor fields, the ones a member dim is stacked on.
 DENSE_FIELDS = ("adj", "link_param", "comp_param", "L", "w", "wnode", "r", "dst",
                 "n_tasks", "stage_mask")
+# The sparse topology's fields (``with_sparse``); a stacked sparse family
+# carries the member dim on these too (``batch.pad_instances``).
+SPARSE_FIELDS = ("out_nbr", "out_mask", "in_nbr", "in_mask", "node_part", "blk_nbr",
+                 "blk_mask")
+
+
+def member_fields(inst: "Instance") -> tuple:
+    """The fields that carry an instance's member dims: the dense ones, and
+    the sparse topology's where it is attached."""
+    return DENSE_FIELDS + (SPARSE_FIELDS if inst.has_sparse else ())
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# Libraries built in this process and the seconds they took: each a miss of
+# the on-disk cache (``obs.metrics.collect_compile_caches`` gauges it).
+BUILDS = {"count": 0, "seconds": 0.0}
 
 
 def nvcc_path() -> str:
@@ -79,6 +82,8 @@ def build_all(names=SOURCES) -> dict:
             continue
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        BUILDS["count"] += 1
+        BUILDS["seconds"] += report[name]["seconds"]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return report

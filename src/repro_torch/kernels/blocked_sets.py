@@ -90,26 +90,37 @@ def tagged_scan_dense(route: torch.Tensor, improper: torch.Tensor) -> torch.Tens
 # The plain version: packed rounds and the composition around them
 # ---------------------------------------------------------------------------
 
-def tagged_plain(route_bits: torch.Tensor, imp_bits: torch.Tensor) -> torch.Tensor:
+def tagged_plain(route_bits: torch.Tensor, imp_bits: torch.Tensor, *,
+                 with_rounds: bool = False):
     """Packed rounds until the bitset settles: (B, Vp, W) x2 -> (B, W) int32.
 
     One round: ``hit[p] = any_w(imp[p, w] | (route[p, w] & tb[w])) != 0``,
-    re-packed into the bitset; at most Vp + 1 rounds.
+    re-packed into the bitset; at most Vp + 1 rounds.  ``with_rounds=True``
+    also returns each row's (B,) int32 round count: the rounds from the
+    empty bitset up to and with the one that changed nothing (the seed is
+    round 1), the reference's packed loop's counter for that row alone.
     """
     B, Vp, W = route_bits.shape
     tb = torch.zeros((B, W), dtype=torch.int32, device=route_bits.device)
+    rounds = torch.zeros(B, dtype=torch.int32, device=route_bits.device)
+    live = torch.ones(B, dtype=torch.bool, device=route_bits.device)
     for _ in range(Vp + 1):
         hit = imp_bits | (route_bits & tb[:, None, :])
         nb = pack_bits((hit != 0).any(dim=-1))
+        if with_rounds:
+            rounds += live.to(torch.int32)
+            live = live & (nb != tb).any(dim=-1)
         if torch.equal(nb, tb):
             break
         tb = nb
-    return tb
+    return (tb, rounds) if with_rounds else tb
 
 
-def tagged_flags_plain(route: torch.Tensor, improper: torch.Tensor) -> torch.Tensor:
+def tagged_flags_plain(route: torch.Tensor, improper: torch.Tensor, *,
+                       with_rounds: bool = False):
     """Tagged flags through the packed rounds: route, improper (B, V, V)
-    bool -> (B, V) bool (rows padded to Vp with zero words)."""
+    bool -> (B, V) bool (rows padded to Vp with zero words), and with
+    ``with_rounds`` the (B,) round counts of :func:`tagged_plain`."""
     V = route.shape[-1]
     Vp, _ = padded_nodes(V)
 
@@ -118,11 +129,14 @@ def tagged_flags_plain(route: torch.Tensor, improper: torch.Tensor) -> torch.Ten
         pad = bits.new_zeros((bits.shape[0], Vp - V, bits.shape[2]))
         return torch.cat([bits, pad], dim=1).contiguous()        # (B, Vp, W)
 
-    return unpack_bits(tagged_plain(packed(route), packed(improper)), V)
+    tb = tagged_plain(packed(route), packed(improper), with_rounds=with_rounds)
+    if with_rounds:
+        return unpack_bits(tb[0], V), tb[1]
+    return unpack_bits(tb, V)
 
 
 def blocked_dense_plain(phi_e: torch.Tensor, pdt: torch.Tensor, adj: torch.Tensor, *,
-                        eps: float, with_tagged: bool = False):
+                        eps: float, with_tagged: bool = False, with_rounds: bool = False):
     """The blocked mask the way the port computed it before the kernel:
     phi_e (B, V, V), pdt (B, V), adj (M, V, V) with M dividing B (row batch
     b belongs to member b // (B // M)) -> (B, V, V) bool,
@@ -130,17 +144,20 @@ def blocked_dense_plain(phi_e: torch.Tensor, pdt: torch.Tensor, adj: torch.Tenso
         ~adj | improper | worse | tagged[q],
         worse[p, q] = pdt[q] > pdt[p] + eps,  improper = (phi_e > 0) & worse.
 
-    ``with_tagged=True`` also returns the (B, V) tagged flags.
+    ``with_tagged=True`` also returns the (B, V) tagged flags,
+    ``with_rounds=True`` the (B,) int32 round counts (after the flags where
+    both are asked).
     """
     B, V = pdt.shape
     M = adj.shape[0]
     route = phi_e > 0.0
     worse = pdt[:, None, :] > pdt[:, :, None] + eps              # pdt_q > pdt_p
     improper = route & worse
-    tagged = tagged_flags_plain(route, improper)
+    tagged, rounds = tagged_flags_plain(route, improper, with_rounds=True)
     blocked = ((~adj[:, None]) | (improper | worse | tagged[:, None, :]).reshape(
         M, B // M, V, V)).reshape(B, V, V)
-    return (blocked, tagged) if with_tagged else blocked
+    out = (blocked,) + ((tagged,) if with_tagged else ()) + ((rounds,) if with_rounds else ())
+    return out if len(out) > 1 else blocked
 
 
 # ---------------------------------------------------------------------------
@@ -198,33 +215,39 @@ def check_inputs(name: str, phi_e, pdt, adj) -> tuple[int, int, int]:
 
 
 def blocked_dense(phi_e: torch.Tensor, pdt: torch.Tensor, adj: torch.Tensor, *,
-                  eps: float, with_tagged: bool = False):
+                  eps: float, with_tagged: bool = False, with_rounds: bool = False):
     """The dense route's blocked mask: phi_e (B, V, V) float32, pdt (B, V)
     float32, adj (M, V, V) bool -> (B, V, V) bool (and the (B, V) tagged
-    flags with ``with_tagged``), as :func:`blocked_dense_plain`.
+    flags with ``with_tagged``, the (B,) int32 round counts with
+    ``with_rounds``, the kernel's own count), as :func:`blocked_dense_plain`.
 
     CUDA tensors: one launch of ``csrc/tagged.cu`` (the plan of
     :func:`blocked_dense_plan`).  CPU tensors: :func:`blocked_dense_plain`.
     """
     if phi_e.device.type == "cpu":
-        return blocked_dense_plain(phi_e, pdt, adj, eps=eps, with_tagged=with_tagged)
+        return blocked_dense_plain(phi_e, pdt, adj, eps=eps, with_tagged=with_tagged,
+                                   with_rounds=with_rounds)
     B, V, per = check_inputs("blocked_dense", phi_e, pdt, adj)
     plan = blocked_dense_plan(V)
     out = torch.empty((B, V, V), dtype=torch.bool, device=phi_e.device)
     tagged = (torch.empty((B, V), dtype=torch.bool, device=phi_e.device)
               if with_tagged else None)
+    rounds = (torch.empty((B,), dtype=torch.int32, device=phi_e.device)
+              if with_rounds else None)
     vec = int(V % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (phi_e, out, adj)))
     fn = _build.function("tagged", "repro_tagged_dense",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(phi_e.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(phi_e.data_ptr(), pdt.data_ptr(), adj.data_ptr(), out.data_ptr(),
-                tagged.data_ptr() if with_tagged else None, B, V, per, plan["cluster"],
+                tagged.data_ptr() if with_tagged else None,
+                rounds.data_ptr() if with_rounds else None, B, V, per, plan["cluster"],
                 plan["words"], eps, vec, stream)
     _build.check("tagged", rc, "blocked_dense")
     blocked_dense.launches += 1
-    return (out, tagged) if with_tagged else out
+    res = (out,) + ((tagged,) if with_tagged else ()) + ((rounds,) if with_rounds else ())
+    return res if len(res) > 1 else out
 
 
 blocked_dense.launches = 0

@@ -63,6 +63,11 @@
 // counts are bit-equal to the earlier kernel's and to the plain PyTorch version
 // (chain_solve_bsr_plain).
 //
+// Per-member block lists (a stacked family whose members have different
+// topologies): row b of the batch reads list b / per, lists_stride ints
+// apart; lists_stride 0 is one list for every row, and the launch is then
+// the one above, instruction for instruction but the list's offset.
+//
 // Padding: rows V..Vp-1 take base = mult = 0, exactly like the reference's
 // zero-padded arrays (so 0 * inf = NaN there latches at +inf as it does in
 // the reference), and the blocks' entries beyond V read as 0.
@@ -126,7 +131,7 @@ bsr_chain_cluster(const float* __restrict__ phi_e, const long long* __restrict__
                   const bool* __restrict__ blk_mask, const float* __restrict__ base,
                   const float* __restrict__ mult, float* __restrict__ out,
                   int* __restrict__ sweeps_out, int K, int NB, int BD, int V, int R,
-                  int reverse, int clamp) {
+                  int reverse, int clamp, int per, int lists_stride) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const size_t member = blockIdx.x / C;
@@ -136,6 +141,7 @@ bsr_chain_cluster(const float* __restrict__ phi_e, const long long* __restrict__
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int pairs = rows * BD;
+  const size_t lst = (member / per) * static_cast<size_t>(lists_stride);
 
   extern __shared__ float s[];
   float* blocks = s;                                            // (R, BD, 32, 33)
@@ -148,8 +154,8 @@ bsr_chain_cluster(const float* __restrict__ phi_e, const long long* __restrict__
 
   for (int p = threadIdx.x; p < pairs; p += kThreads) {
     const int I = row0 + p / BD, d = p % BD;
-    nbr[p] = static_cast<int>(blk_nbr[I * BD + d]);
-    msk[p] = blk_mask[I * BD + d] ? 1 : 0;
+    nbr[p] = static_cast<int>(blk_nbr[lst + I * BD + d]);
+    msk[p] = blk_mask[lst + I * BD + d] ? 1 : 0;
   }
   for (int i = threadIdx.x; i < rows * kBs; i += kThreads) b[i] = 0.f;
   __syncthreads();
@@ -251,7 +257,8 @@ bsr_chain_cluster(const float* __restrict__ phi_e, const long long* __restrict__
 template <int TRANS, int STREAM, int C>
 int launch(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
            const float* base, const float* mult, float* out, int* sweeps, int B, int K,
-           int NB, int BD, int V, int R, int reverse, int clamp, cudaStream_t stream) {
+           int NB, int BD, int V, int R, int reverse, int clamp, int per, int lists_stride,
+           cudaStream_t stream) {
   auto kernel = bsr_chain_cluster<TRANS, STREAM, C>;
   const int smem = static_cast<int>(sizeof(float)) * smem_floats(NB, BD, R, STREAM);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -261,19 +268,20 @@ int launch(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<B * C, kThreads, smem, stream>>>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, K,
-                                            NB, BD, V, R, reverse, clamp);
+                                            NB, BD, V, R, reverse, clamp, per, lists_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TRANS, int STREAM>
 int launch_c(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
              const float* base, const float* mult, float* out, int* sweeps, int B, int K,
-             int NB, int BD, int V, int C, int R, int reverse, int clamp, cudaStream_t stream) {
+             int NB, int BD, int V, int C, int R, int reverse, int clamp, int per,
+             int lists_stride, cudaStream_t stream) {
   switch (C) {
 #define REPRO_BSR_CASE(c)                                                                   \
   case c:                                                                                   \
     return launch<TRANS, STREAM, c>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, \
-                                    NB, BD, V, R, reverse, clamp, stream);
+                                    NB, BD, V, R, reverse, clamp, per, lists_stride, stream);
     REPRO_BSR_CASE(1)
     REPRO_BSR_CASE(2)
     REPRO_BSR_CASE(4)
@@ -311,28 +319,31 @@ int repro_bsr_chain_max_clusters(int NB, int BD, int R, int stream, int* out) {
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
 }
 
-// phi_e: (B, K, V, V) float32; blk_nbr: (NB, BD) int64; blk_mask: (NB, BD)
-// bool; base/mult/out: (B, K, V) float32 with (NB - 1) * 32 < V <= NB * 32;
+// phi_e: (B, K, V, V) float32; blk_nbr: (B / per, NB, BD) int64 and
+// blk_mask: (B / per, NB, BD) bool, lists_stride = NB * BD (one list a
+// member of per rows), or (NB, BD) each with lists_stride 0 (one list for
+// all); base/mult/out: (B, K, V) float32 with (NB - 1) * 32 < V <= NB * 32;
 // sweeps: (B, K) int32.  flags: bit 0 reverse, bit 1 clamp, bit 2 trans.
 // C CTAs a cluster (1, 2, 4, 8 or 16), R block rows each (R * C >= NB); stream
 // as the wrapper's bsr_chain_plan picks them.
 int repro_bsr_chain(const float* phi_e, const long long* blk_nbr, const bool* blk_mask,
                     const float* base, const float* mult, float* out, int* sweeps, int B,
-                    int K, int NB, int BD, int V, int C, int R, int stream, int flags,
-                    cudaStream_t cuda_stream) {
+                    int K, int NB, int BD, int V, int C, int R, int stream, int flags, int per,
+                    int lists_stride, cudaStream_t cuda_stream) {
   if (B == 0 || K == 0 || NB == 0) return 0;
-  if (C < 1 || C > kMaxCluster || R * C < NB) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || C > kMaxCluster || R * C < NB || per < 1 || B % per != 0 || lists_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int reverse = flags & 1, clamp = (flags >> 1) & 1, trans = (flags >> 2) & 1;
   if (trans) {
     return stream ? launch_c<1, 1>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB,
-                                   BD, V, C, R, reverse, clamp, cuda_stream)
+                                   BD, V, C, R, reverse, clamp, per, lists_stride, cuda_stream)
                   : launch_c<1, 0>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB,
-                                   BD, V, C, R, reverse, clamp, cuda_stream);
+                                   BD, V, C, R, reverse, clamp, per, lists_stride, cuda_stream);
   }
   return stream ? launch_c<0, 1>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB, BD,
-                                 V, C, R, reverse, clamp, cuda_stream)
+                                 V, C, R, reverse, clamp, per, lists_stride, cuda_stream)
                 : launch_c<0, 0>(phi_e, blk_nbr, blk_mask, base, mult, out, sweeps, B, K, NB, BD,
-                                 V, C, R, reverse, clamp, cuda_stream);
+                                 V, C, R, reverse, clamp, per, lists_stride, cuda_stream);
 }
 
 const char* repro_cuda_error_string(int code) {

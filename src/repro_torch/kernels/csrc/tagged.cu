@@ -40,7 +40,11 @@
 // neighbouring words), and a row with an improper link sets its seed bit.
 // No packed word and no intermediate V x V tensor reaches device memory.
 // Then the fixed point with the bitset in every CTA (one cluster barrier a
-// round), and each CTA writes its rows of the mask.
+// round), and each CTA writes its rows of the mask.  Where asked, the
+// rounds the fixed point ran are written too (rounds_out, a row batch's
+// int32; the seed counted as round 1 from an empty bitset, as the
+// reference's packed loop counts them): a store of a count the loop keeps
+// anyway, nothing else of the launch changes.
 
 #include "blocked_sets.cuh"
 
@@ -62,15 +66,16 @@ template <int C>
 __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(kThreads, 2)
 tagged_dense_kernel(const float* __restrict__ phi, const float* __restrict__ pdt,
                     const uint8_t* __restrict__ adj, uint8_t* __restrict__ out,
-                    uint8_t* __restrict__ tagged_out, int V, int per, int WR, float eps,
-                    int vec) {
+                    uint8_t* __restrict__ tagged_out, int* __restrict__ rounds_out, int V,
+                    int per, int WR, float eps, int vec) {
   BLOCKED_STAMP(0);
   extern __shared__ uint32_t sw[];
   const int W = (V + 31) >> 5;
   const int Rp = 32 * WR;
   const size_t b = blockIdx.x / C;
   const size_t m = b / per;
-  const blocked::Rows r = blocked::rows_of(blocked::cta_rank<C>(), WR, V);
+  const int rank = blocked::cta_rank<C>();
+  const blocked::Rows r = blocked::rows_of(rank, WR, V);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -187,12 +192,13 @@ tagged_dense_kernel(const float* __restrict__ phi, const float* __restrict__ pdt
   BLOCKED_STAMP_SYNC();
   BLOCKED_STAMP(5);
   if (tagged_out != nullptr) blocked::write_tagged(tagged_out + b * V, tf, r);
+  if (rounds_out != nullptr && rank == 0 && threadIdx.x == 0) rounds_out[b] = rounds;
 }
 
 template <int C>
 int launch(const float* phi, const float* pdt, const uint8_t* adj, uint8_t* out,
-           uint8_t* tagged_out, int B, int V, int per, int WR, float eps, int vec,
-           cudaStream_t stream) {
+           uint8_t* tagged_out, int* rounds_out, int B, int V, int per, int WR, float eps,
+           int vec, cudaStream_t stream) {
   auto kernel = tagged_dense_kernel<C>;
   const int smem = static_cast<int>(sizeof(uint32_t)) * smem_words(V, WR);
   // the attributes are set once for the largest shared memory asked so far
@@ -205,8 +211,8 @@ int launch(const float* phi, const float* pdt, const uint8_t* adj, uint8_t* out,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  kernel<<<B * C, kThreads, smem, stream>>>(phi, pdt, adj, out, tagged_out, V, per, WR, eps,
-                                            vec);
+  kernel<<<B * C, kThreads, smem, stream>>>(phi, pdt, adj, out, tagged_out, rounds_out, V, per,
+                                            WR, eps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,19 +226,21 @@ int repro_tagged_dense_smem_bytes(int V, int WR) {
 }
 
 // phi: (B, V, V) float32; pdt: (B, V) float32; adj: (B / per, V, V) bool;
-// out: (B, V, V) bool; tagged_out: (B, V) bool or null.  C CTAs a row batch
+// out: (B, V, V) bool; tagged_out: (B, V) bool or null; rounds_out: (B,)
+// int32 or null.  C CTAs a row batch
 // (1, 2, 4, 8 or 16), WR bitset words each (C * WR >= ceil(V / 32)); vec 1
 // where V % 4 == 0 and phi, out and adj are 16-byte aligned.
 int repro_tagged_dense(const float* phi, const float* pdt, const uint8_t* adj, uint8_t* out,
-                       uint8_t* tagged_out, int B, int V, int per, int C, int WR, float eps,
-                       int vec, cudaStream_t stream) {
+                       uint8_t* tagged_out, int* rounds_out, int B, int V, int per, int C, int WR,
+                       float eps, int vec, cudaStream_t stream) {
   if (B == 0 || V == 0) return 0;
   if (per < 1 || B % per != 0 || WR < 1 || C * WR < (V + 31) / 32)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
 #define REPRO_TAGGED_CASE(c) \
   case c:                    \
-    return launch<c>(phi, pdt, adj, out, tagged_out, B, V, per, WR, eps, vec, stream);
+    return launch<c>(phi, pdt, adj, out, tagged_out, rounds_out, B, V, per, WR, eps, vec, \
+                     stream);
     REPRO_TAGGED_CASE(1)
     REPRO_TAGGED_CASE(2)
     REPRO_TAGGED_CASE(4)

@@ -21,7 +21,10 @@
 // with the threshold rounded as one float32 add (__fadd_rn), as PyTorch
 // rounds a float32 tensor plus a Python scalar.  The round count (the seed
 // counted as round 1, as in the reference) is written beside the flags
-// where asked.
+// where asked.  The lists are one (V, D) pair for every member
+// (nbr_stride 0) or one a member, nbr_stride = V * D entries apart (a
+// stacked family whose members' topologies differ): member m reads its
+// own, and nothing else of the launch changes.
 //
 // What bounds it: writing the V x V mask once (1 MB a row batch at metro-sw
 // V = 1000; the E = 6400 entries of phi it reads are a hundredth of that).
@@ -58,7 +61,7 @@ tagged_nbr_mask_kernel(const float* __restrict__ phi, const float* __restrict__ 
                        const uint8_t* __restrict__ adj, const long long* __restrict__ nbr,
                        const uint8_t* __restrict__ nmask, uint8_t* __restrict__ out,
                        uint8_t* __restrict__ tagged_out, int* __restrict__ rounds_out, int V,
-                       int D, int per, int WR, float eps, int vec) {
+                       int D, int per, int WR, float eps, int vec, int nbr_stride) {
   BLOCKED_STAMP(0);
   extern __shared__ uint32_t sw[];
   const int W = (V + 31) >> 5;
@@ -83,8 +86,9 @@ tagged_nbr_mask_kernel(const float* __restrict__ phi, const float* __restrict__ 
   // successor where the slot is listed and routed (phi > 0), -1 elsewhere
   const float* pb = phi + b * V * V;
   const int slots = r.nrows * D;
+  const size_t lst = m * static_cast<size_t>(nbr_stride);
   for (int k = threadIdx.x; k < slots; k += kThreads) {
-    const size_t g = static_cast<size_t>(r.row0) * D + k;
+    const size_t g = lst + static_cast<size_t>(r.row0) * D + k;
     int q = nmask[g] ? static_cast<int>(nbr[g]) : -1;
     if (q >= 0 && !(__ldg(pb + static_cast<size_t>(r.row0 + k / D) * V + q) > 0.f)) q = -1;
     nb[k] = q;
@@ -143,7 +147,8 @@ tagged_nbr_mask_kernel(const float* __restrict__ phi, const float* __restrict__ 
 template <int C>
 int launch(const float* phi, const float* pdt, const uint8_t* adj, const long long* nbr,
            const uint8_t* nmask, uint8_t* out, uint8_t* tagged_out, int* rounds_out, int B,
-           int V, int D, int per, int WR, float eps, int vec, cudaStream_t stream) {
+           int V, int D, int per, int WR, float eps, int vec, int nbr_stride,
+           cudaStream_t stream) {
   auto kernel = tagged_nbr_mask_kernel<C>;
   const int smem = static_cast<int>(sizeof(uint32_t)) * smem_words(V, D, WR);
   // the attributes are set once for the largest shared memory asked so far
@@ -157,7 +162,7 @@ int launch(const float* phi, const float* pdt, const uint8_t* adj, const long lo
     smem_set = smem;
   }
   kernel<<<B * C, kThreads, smem, stream>>>(phi, pdt, adj, nbr, nmask, out, tagged_out,
-                                            rounds_out, V, D, per, WR, eps, vec);
+                                            rounds_out, V, D, per, WR, eps, vec, nbr_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,23 +177,24 @@ int repro_tagged_nbr_smem_bytes(int V, int D, int WR) {
 }
 
 // phi: (B, V, V) float32; pdt: (B, V) float32; adj: (B / per, V, V) bool;
-// nbr: (V, D) int64 and nmask: (V, D) bool, the padded out-neighbor lists;
-// out: (B, V, V) bool; tagged_out: (B, V) bool or null; rounds_out: (B,)
+// nbr: (V, D) int64 and nmask: (V, D) bool, the padded out-neighbor lists,
+// with nbr_stride 0, or (B / per, V, D) each, one pair a member, with
+// nbr_stride V * D; out: (B, V, V) bool; tagged_out: (B, V) bool or null; rounds_out: (B,)
 // int32 or null.  C CTAs a row batch (1, 2, 4, 8 or 16), WR bitset words
 // each (C * WR >= ceil(V / 32)); vec 1 where V % 4 == 0 and out and adj are
 // 16-byte aligned.
 int repro_tagged_nbr(const float* phi, const float* pdt, const uint8_t* adj,
                      const long long* nbr, const uint8_t* nmask, uint8_t* out,
                      uint8_t* tagged_out, int* rounds_out, int B, int V, int D, int per, int C,
-                     int WR, float eps, int vec, cudaStream_t stream) {
+                     int WR, float eps, int vec, int nbr_stride, cudaStream_t stream) {
   if (B == 0 || V == 0) return 0;
-  if (D < 1 || per < 1 || B % per != 0 || WR < 1 || C * WR < (V + 31) / 32)
+  if (D < 1 || per < 1 || B % per != 0 || WR < 1 || C * WR < (V + 31) / 32 || nbr_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
 #define REPRO_TAGGED_NBR_CASE(c)                                                              \
   case c:                                                                                     \
     return launch<c>(phi, pdt, adj, nbr, nmask, out, tagged_out, rounds_out, B, V, D, per, WR, \
-                     eps, vec, stream);
+                     eps, vec, nbr_stride, stream);
     REPRO_TAGGED_NBR_CASE(1)
     REPRO_TAGGED_NBR_CASE(2)
     REPRO_TAGGED_NBR_CASE(4)

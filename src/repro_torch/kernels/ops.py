@@ -148,7 +148,7 @@ def _flat(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor):
 
 
 def blocked_set(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor, *,
-                eps: float) -> torch.Tensor:
+                eps: float, with_rounds: bool = False):
     """The dense route's blocked mask, ``engine.blocked_sets``' result:
     adj (*M, V, V) bool, phi_e (*M, ..., V, V), pdt (*M, ..., V) ->
     (*M, ..., V, V) bool,
@@ -158,9 +158,14 @@ def blocked_set(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor, *,
     ``tagged`` the least fixed point of
     ``tagged[p] = exists q: route[p, q] and (improper[p, q] or tagged[q])``
     (``route = phi_e > 0``, ``improper = route & worse``).  One launch of
-    the dense blocked-set kernel covers every row batch.
+    the dense blocked-set kernel covers every row batch.  ``with_rounds=True``
+    also returns each row batch's int32 round count of the fixed point
+    (shape ``phi_e.shape[:-2]``), written by the same launch.
     """
     a, pe, pd = _flat(adj, phi_e, pdt)
+    if with_rounds:
+        mask, rounds = _bset.blocked_dense(pe, pd, a, eps=eps, with_rounds=True)
+        return mask.reshape(phi_e.shape), rounds.reshape(phi_e.shape[:-2])
     return _bset.blocked_dense(pe, pd, a, eps=eps).reshape(phi_e.shape)
 
 
@@ -193,10 +198,14 @@ def sparse_chain_solve(phi_e: torch.Tensor, base: torch.Tensor, mult: torch.Tens
     by blocked fixed-point sweeps over the nonzero 32 x 32 blocks: exact
     for loop-free (nilpotent) strategies, latched at +inf for divergent
     loopy candidates.  phi_e (..., K, V, V), base/mult (..., K, V), the
-    instance's block lists blk_nbr/blk_mask (NB, BD) -> x (..., K, V);
-    every chain in one launch.
+    instance's block lists blk_nbr/blk_mask (NB, BD), or a stacked family's
+    (*M, NB, BD) with *M a prefix of phi_e's leading dims (each member's
+    chains read its own lists) -> x (..., K, V); every chain in one launch.
     """
     K, V = base.shape[-2:]
+    if blk_nbr.ndim > 2:
+        blk_nbr = blk_nbr.reshape((-1,) + blk_nbr.shape[-2:])
+        blk_mask = blk_mask.reshape((-1,) + blk_mask.shape[-2:])
     x = _ss.chain_solve_bsr(phi_e.reshape(-1, K, V, V).contiguous(), blk_nbr, blk_mask,
                             base.reshape(-1, K, V).contiguous(),
                             mult.reshape(-1, K, V).contiguous(),
@@ -205,14 +214,23 @@ def sparse_chain_solve(phi_e: torch.Tensor, base: torch.Tensor, mult: torch.Tens
 
 
 def blocked_set_nbr(adj: torch.Tensor, phi_e: torch.Tensor, pdt: torch.Tensor,
-                    nbr: torch.Tensor, mask: torch.Tensor, *, eps: float) -> torch.Tensor:
+                    nbr: torch.Tensor, mask: torch.Tensor, *, eps: float,
+                    with_rounds: bool = False):
     """Neighbor-list variant of :func:`blocked_set` (the sparse route): the
-    same shapes plus the out-neighbor lists nbr/mask (V, D) -> the blocked
-    mask, bit-equal to it wherever ``phi_e`` routes only along listed edges
-    (the fixed point reads route and improper on the lists alone), at O(E)
-    work per round.  One launch covers every row batch.
+    same shapes plus the out-neighbor lists nbr/mask (V, D), or a stacked
+    family's (*M, V, D) with *M adj's member dims (each member's rows read
+    its own lists) -> the blocked mask, bit-equal to it wherever ``phi_e``
+    routes only along listed edges (the fixed point reads route and improper
+    on the lists alone), at O(E) work per round.  One launch covers every
+    row batch.  ``with_rounds=True`` also returns the round counts, as
+    :func:`blocked_set`.
     """
     a, pe, pd = _flat(adj, phi_e, pdt)
+    if nbr.ndim > 2:
+        nbr, mask = (x.reshape((-1,) + x.shape[-2:]) for x in (nbr, mask))
+    if with_rounds:
+        out, _, rounds = _ss.blocked_nbr(pe, pd, a, nbr, mask, eps=eps, with_rounds=True)
+        return out.reshape(phi_e.shape), rounds.reshape(phi_e.shape[:-2])
     return _ss.blocked_nbr(pe, pd, a, nbr, mask, eps=eps).reshape(phi_e.shape)
 
 

@@ -59,8 +59,12 @@ Table II fleets).
 
 ``metrics`` and ``tracer`` are duck-typed hooks (``counter(name, n)`` /
 ``observe(name, value)``; ``span(name, tid=, **args)`` as a context manager
-/ ``instant(name, tid=, **args)``), called with the reference's names.
-The on-device iteration ring (``telemetry=``) is not ported yet.
+/ ``instant(name, tid=, **args)``; ``repro_torch.obs.Metrics`` and
+``Tracer``), called with the reference's names.  ``telemetry=`` turns on
+the on-device iteration ring (``engine.resolve_telemetry``): each solve
+segment's rows are drained into ``iter_trace`` at the chunk boundary where
+the service reads its latches anyway, before any ``reset_carry`` zeroes
+them.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ import torch
 from repro_torch.core import (baselines, batch, conditions, engine, events, gp,
                               traffic)
 from repro_torch.core.network import DENSE_FIELDS, Device, Instance, resolve_device
+from repro_torch.obs.device import records_to_dicts, ring_overflow, ring_valid
 from repro_torch.core.traffic import Phi
 
 # Corrupt-class invariant thresholds: the GP projection and repair_phi keep
@@ -215,9 +220,10 @@ class OnlineSolver:
     may exceed the incumbent by before the watchdog escalates;
     ``debug=True`` runs ``verify_member`` after every event and quarantines
     a corrupt member; ``fault_injector`` corrupts the member's carry before
-    each event.  ``telemetry`` must be None or False (the iteration ring is
-    not ported); ``metrics`` and ``tracer`` are duck-typed hooks (module
-    docstring).
+    each event.  ``telemetry`` turns on the iteration ring, drained into
+    ``iter_trace`` (one dict a committed iteration, tagged with the member,
+    the event index, -1 for the cold start, the phase and a segment id);
+    ``metrics`` and ``tracer`` are duck-typed hooks (module docstring).
 
     The instances must lie on ``device`` (CUDA unless the caller passes
     ``device="cpu"``).  Construction cold-solves the fleet member-batched;
@@ -247,10 +253,6 @@ class OnlineSolver:
         tracer=None,
         device: Device = "cuda",
     ):
-        if telemetry is not None and telemetry is not False:
-            raise NotImplementedError(
-                "OnlineSolver(telemetry=...): the on-device iteration ring is not "
-                "ported yet: ROADMAP Queue 1, Observability")
         dev = resolve_device(device)
         for inst in insts:
             if inst.device.type != dev.type:
@@ -279,11 +281,14 @@ class OnlineSolver:
         self.fault_injector = fault_injector
         self.metrics = metrics
         self.tracer = tracer
+        self._telemetry = engine.resolve_telemetry(telemetry)
+        self.iter_trace: list[dict] = []
+        self._segments = 0                 # drained solve segments
         self._accel = engine.resolve_accel(accel)
         self._alpha = torch.tensor(alpha, dtype=torch.float32, device=dev)
 
         self.carry: engine.SolveCarry = engine.init_carry(
-            self.binst, gp.init_phi(self.binst), self._accel)
+            self.binst, gp.init_phi(self.binst), self._accel, self._telemetry)
         self.total_iters = 0                       # all committed iterations
         self.reports: list[HealthReport] = []
         self.ladder_hits: dict[str, int] = {}      # escalation-rung counters
@@ -714,6 +719,28 @@ class OnlineSolver:
         if self.metrics is not None:
             self.metrics.counter(name, n)
 
+    def _drain_ring(self, b: int, tb, iters: int, phase: str) -> None:
+        """Move one solve segment's ring rows into ``iter_trace``.
+
+        Called at the end of every convergence, where the service reads the
+        latches back anyway, before any ``reset_carry`` zeroes the ring.
+        Each record is tagged with the member, the index of the event being
+        processed (-1 during the cold start), the phase and a segment id.
+        """
+        if self._telemetry is None:
+            return
+        n = int(iters)
+        rows = ring_valid(tb, n)
+        dropped = ring_overflow(tb, n)
+        if dropped and self.metrics is not None:
+            self.metrics.counter("telemetry.ring.dropped", dropped)
+        ev_idx = -1 if phase == "cold-start" else len(self.reports)
+        seg = self._segments
+        self._segments += 1
+        for rec in records_to_dicts(rows):
+            rec.update(member=b, event=ev_idx, phase=phase, segment=seg)
+            self.iter_trace.append(rec)
+
     # -- internals ------------------------------------------------------
 
     def _index(self, members: Sequence[int]) -> torch.Tensor:
@@ -814,7 +841,8 @@ class OnlineSolver:
         def advance(length: int) -> tuple[bool, float]:
             state["carry"], *_ = engine.scan_chunk(
                 inst_s, state["carry"], self._alpha, self.tol, self.patience,
-                self.max_iters, length=length, accel=self._accel, app_mask=am)
+                self.max_iters, length=length, accel=self._accel, app_mask=am,
+                telemetry=self._telemetry)
             done = state["carry"].done.cpu().numpy()
             if bool(done.all()):
                 return True, float("inf")
@@ -830,6 +858,10 @@ class OnlineSolver:
         self.carry = _put(self.carry, self._index(members),
                           gp._members(carry_s, self._index(range(n))))
         iters = carry_s.iters[:n].cpu().numpy().copy()
+        if self._telemetry is not None:
+            tb_h = carry_s.tb.cpu().numpy()        # (bucket, R, 8) in one transfer
+            for i, m in enumerate(members):
+                self._drain_ring(m, tb_h[i], int(iters[i]), phase)
         self.total_iters += int(iters.sum())
         return iters, plateaued
 
@@ -849,7 +881,8 @@ class OnlineSolver:
         def advance(length: int) -> tuple[bool, float]:
             state["carry"], *_ = engine.scan_chunk(
                 inst_b, state["carry"], self._alpha, self.tol, self.patience,
-                self.max_iters, ae, ac, length=length, accel=self._accel, app_mask=am)
+                self.max_iters, ae, ac, length=length, accel=self._accel, app_mask=am,
+                telemetry=self._telemetry)
             return bool(state["carry"].done), float(state["carry"].residual)
 
         with self._span(phase, tid=b, member=b):
@@ -858,5 +891,6 @@ class OnlineSolver:
         carry_b = state["carry"]
         self._scatter_carry(b, carry_b)
         iters = np.asarray([int(carry_b.iters)], np.int64)
+        self._drain_ring(b, carry_b.tb, int(iters[0]), phase)
         self.total_iters += int(iters.sum())
         return iters, plateaued

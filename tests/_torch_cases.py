@@ -2221,3 +2221,97 @@ def check_bsr_digest(case, ref, device="cuda", plain=True):
     rep["differ"] = sorted(k for k, v in outputs.items() if sha256(v) != ref["outputs"][k])
     rep["outputs_equal"] = not rep["differ"]
     return rep
+
+
+# ---------------------------------------------------------------------------
+# Sparse families (batched sparse route)
+# ---------------------------------------------------------------------------
+
+SPARSE_RATES = (3.0, 6.0)     # input rates a source draws: congested, not over capacity
+
+
+def sparse_family(network, members, V=100, **kw):
+    """Sparse instances on the metro builders' graphs (``small_world(V,
+    seed=3)`` for "sw", ``metro_geant(V, seed=11)`` for "geant", three
+    applications as ``metro_instance``) at :data:`SPARSE_RATES`, one per
+    (topology, seed) of ``members``, through ``network`` (the reference's
+    module or the port's; ``kw`` such as ``device=`` goes to
+    ``build_instance``): the same numpy draws in both, so every field is
+    bit-equal."""
+    out = []
+    for topo, seed in members:
+        adj = network.small_world(V, seed=3) if topo == "sw" else network.metro_geant(V, seed=11)
+        out.append(network.with_sparse(network.build_instance(
+            adj, n_apps=3, n_tasks=2, n_sources=3, link_mean=20.0, comp_mean=20.0,
+            seed=seed, rate_lo=SPARSE_RATES[0], rate_hi=SPARSE_RATES[1], **kw)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Telemetry rings
+# ---------------------------------------------------------------------------
+
+RING_TOL = 1e-5       # cost and residual columns: relative, the residual's to max(|ref|, 1)
+
+
+def ring_parity(rows, ref_rows, ladder_costs=None, twin_rows=None) -> dict:
+    """The port's ring rows (n, 8) against the reference's, as decoded by
+    ``obs.ring_valid``: the same count; ``iter`` exact; ``cost`` within
+    ``RING_TOL`` relative on every row; and up to the first step where the
+    winning rungs differ, ``alpha``, ``anderson``, ``rung`` and
+    ``bs_rounds`` exact and ``residual`` within ``RING_TOL`` relative to
+    max(|ref|, 1), or within twice the reference's own spread: the largest
+    distance of ``twin_rows`` (the reference's run through its other stage
+    solver) to it in this column, over the rows before the twin's own first
+    rung flip (a residual is a difference of marginals near the optimum,
+    and the reference's two runs part in it by more than 1e-5).  A rung
+    flip is allowed only
+    as a tie: the port's own costs of its rung and of the reference's
+    (``ladder_costs`` (n, R), from ``scan_chunk(record=True)``) within
+    ``FLIP_TIE`` (the witness the sweep and service contracts take).  From
+    there on the two runs are different trajectories of equal cost: only
+    the cost column is held.  Returns ``{"ok", "why", "flip", ...}``."""
+    rows, ref_rows = np.asarray(rows, np.float64), np.asarray(ref_rows, np.float64)
+    why = []
+    if rows.shape != ref_rows.shape:
+        return {"ok": False, "why": [f"shapes {rows.shape} vs {ref_rows.shape}"], "flip": None}
+    n = len(rows)
+    if not np.array_equal(rows[:, 0], ref_rows[:, 0]):
+        why.append("iter column")
+    cost_rel = (np.abs(rows[:, 1] - ref_rows[:, 1]) / np.abs(ref_rows[:, 1])).max(initial=0.0)
+    if not cost_rel <= RING_TOL:
+        why.append(f"cost {cost_rel:.3g}")
+    flips = np.flatnonzero(rows[:, 4] != ref_rows[:, 4])
+    horizon = int(flips[0]) if len(flips) else n
+    flip = None
+    if len(flips):
+        j = horizon
+        pr, rr = int(rows[j, 4]), int(ref_rows[j, 4])
+        tie = None
+        if ladder_costs is not None:
+            lc = np.asarray(ladder_costs[j], np.float64)
+            tie = bool(lc[pr] == lc[rr] or abs(lc[pr] - lc[rr]) <= FLIP_TIE * abs(lc[rr]))
+        flip = {"step": j, "rung": pr, "reference_rung": rr, "tie": tie}
+        if not tie:
+            why.append(f"rung flip at row {j} ({pr} vs {rr}) is no tie")
+    pre = slice(0, horizon)
+    for col in (3, 5, 6):
+        bad = np.flatnonzero(rows[pre, col] != ref_rows[pre, col])
+        if len(bad):
+            why.append(f"column {col} differs at rows {bad[:5].tolist()}")
+    scale = np.maximum(np.abs(ref_rows[pre, 2]), 1.0)
+    spread = 0.0
+    if twin_rows is not None:
+        twin = np.asarray(twin_rows, np.float64)[:n]
+        tflip = np.flatnonzero(twin[:, 4] != ref_rows[:len(twin), 4])
+        tend = int(tflip[0]) if len(tflip) else len(twin)
+        spread = 2 * float(np.abs(twin[:tend, 2] - ref_rows[:tend, 2]).max(initial=0.0))
+    excess = np.abs(rows[pre, 2] - ref_rows[pre, 2]) - np.maximum(RING_TOL * scale, spread)
+    res_rel = (np.abs(rows[pre, 2] - ref_rows[pre, 2]) / scale).max(initial=0.0)
+    if (excess > 0).any():
+        j = int(np.flatnonzero(excess > 0)[0])
+        why.append(f"residual at row {j}: {rows[j, 2]} vs {ref_rows[j, 2]}, beyond "
+                   f"{RING_TOL} x max(|ref|, 1) and the reference's spread {spread:.3g}")
+    return {"ok": not why, "why": why, "flip": flip, "rows": n, "cost_max_rel": float(cost_rel),
+            "residual_max_rel": float(res_rel), "reference_spread": spread,
+            "rows_before_flip": horizon}

@@ -24,7 +24,11 @@ reference's own bound, ``tests/test_blocked_sets.py``).  The event layer:
 a fleet on the card replays the CPU fleet's trace to the same bits;
 frozen applications (``app_mask``, plain and accelerated) keep their rows
 bit for bit on every committed iterate, the history within 1e-5 of the
-CPU's; ``gp.solve_loop`` is ``gp.solve`` bit for bit on the card.
+CPU's; ``gp.solve_loop`` is ``gp.solve`` bit for bit on the card.  A
+stacked sparse family's per-member lists: one launch of ``bsr_chain`` /
+``tagged_nbr`` bit-equal to a stride-0 launch a member and to the plain
+versions; ``tagged``'s round count equal to its plain version's, the mask
+unchanged by asking for it.
 """
 
 import dataclasses
@@ -975,3 +979,86 @@ def test_online_service_seq_on_card(cuda):
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ("lu_factor", "chain_solve", "tagged")), counts
     assert run["solver"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# Per-member lists (a sparse family) and the dense kernel's round count
+# ---------------------------------------------------------------------------
+
+def _mixed_family(device, V=130):
+    """sw, geant, sw members at V nodes, padded: their lists differ."""
+    from repro_torch.core import batch
+    from _torch_cases import sparse_family
+
+    fam = sparse_family(network, (("sw", 0), ("geant", 0), ("sw", 1)), V=V, device=device)
+    return batch.pad_instances(fam, hetero_degree="pad")
+
+
+@pytest.mark.parametrize("trans,reverse,clamp", [(1, False, False), (0, True, True)])
+def test_bsr_chain_member_lists_bit_equal_to_a_launch_a_member(cuda, trans, reverse, clamp):
+    """One launch with a block list a member equals a stride-0 launch a
+    member on the same inputs, bit for bit (iterates and sweep counts), and
+    the plain version with the same lists."""
+    binst = _mixed_family(cuda)
+    assert not torch.equal(binst.blk_mask[0], binst.blk_mask[1])
+    cands = engine.ladder_candidates(binst, gp.init_phi(binst), 0.1)[0]
+    B, V, K = binst.batch_shape[0], binst.V, binst.K1
+    pe = cands.e.reshape(-1, K, V, V).contiguous()
+    rng = np.random.default_rng(7)
+    base = torch.from_numpy(rng.uniform(0.0, 2.0, (pe.shape[0], K, V)).astype(np.float32)).to(cuda)
+    mult = torch.from_numpy(rng.uniform(0.0, 1.0, (pe.shape[0], K, V)).astype(np.float32)).to(cuda)
+    kw = dict(trans=trans, reverse=reverse, clamp=clamp, with_sweeps=True)
+    got, sw = ss.chain_solve_bsr(pe, binst.blk_nbr, binst.blk_mask, base, mult, **kw)
+    per = pe.shape[0] // B
+    for b in range(B):
+        rows = slice(b * per, (b + 1) * per)
+        one, one_sw = ss.chain_solve_bsr(pe[rows], binst.blk_nbr[b], binst.blk_mask[b],
+                                         base[rows], mult[rows], **kw)
+        assert torch.equal(got[rows].view(torch.int32), one.view(torch.int32)), b
+        assert torch.equal(sw[rows], one_sw), b
+    M = pe.transpose(-1, -2) if trans else pe
+    want, want_sw = ss.chain_solve_bsr_plain(ss.block_values(M, binst.blk_nbr, binst.blk_mask),
+                                             binst.blk_nbr, base, mult, reverse=reverse,
+                                             clamp=clamp, with_sweeps=True)
+    assert torch.equal(sw, want_sw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_tagged_nbr_member_lists_bit_equal_to_a_launch_a_member(cuda):
+    """The neighbor-list blocked-set kernel with a list pair a member: mask,
+    tagged flags and rounds equal to a stride-0 launch a member and to the
+    plain version with the same lists."""
+    binst = _mixed_family(cuda)
+    phi = gp.init_phi(binst)
+    pdt = marginals.marginals(binst, phi).pdt
+    B, V = binst.batch_shape[0], binst.V
+    pe, pd = phi.e.reshape(-1, V, V).contiguous(), pdt.reshape(-1, V).contiguous()
+    args = (pe, pd, binst.adj, binst.out_nbr, binst.out_mask)
+    got = ss.blocked_nbr(*args, eps=engine.BLOCK_EPS, with_rounds=True)
+    want = ss.blocked_nbr_plain(*args, eps=engine.BLOCK_EPS, with_rounds=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    per = pe.shape[0] // B
+    for b in range(B):
+        rows = slice(b * per, (b + 1) * per)
+        one = ss.blocked_nbr(pe[rows], pd[rows], binst.adj[b:b + 1], binst.out_nbr[b],
+                             binst.out_mask[b], eps=engine.BLOCK_EPS, with_rounds=True)
+        for g, w in zip(got, one):
+            assert torch.equal(g[rows], w), b
+
+
+@pytest.mark.parametrize("V", [4, 33, 100, 241, 600])
+def test_tagged_rounds_output_equals_plain_count(cuda, V):
+    """The dense blocked-set kernel's round count equals its plain
+    version's, and asking for it leaves the mask and flags bit-equal."""
+    phi, pdt, adj = blocked_set_inputs(V, V, members=2, per=3, special=False)
+    t = _on(cuda, phi, pdt, adj)
+    mask, tagged, rounds = bset.blocked_dense(*t, eps=engine.BLOCK_EPS, with_tagged=True,
+                                              with_rounds=True)
+    plain = bset.blocked_dense_plain(*t, eps=engine.BLOCK_EPS, with_tagged=True,
+                                     with_rounds=True)
+    bare, bare_tagged = bset.blocked_dense(*t, eps=engine.BLOCK_EPS, with_tagged=True)
+    assert torch.equal(rounds, plain[2]), (rounds, plain[2])
+    assert torch.equal(mask, plain[0]) and torch.equal(tagged, plain[1])
+    assert torch.equal(mask, bare) and torch.equal(tagged, bare_tagged)
+    assert int(rounds.min()) >= 1

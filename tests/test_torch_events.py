@@ -224,9 +224,15 @@ def test_stored_traces_and_members(fleet):
 
 
 def test_pad_fleet_refuses_a_sparse_member():
+    """Since sparse batching is ported, a sparse member is padded, not
+    refused: its topology re-derived on the padded adjacency, every field
+    the reference's."""
     inst = tnet.with_sparse(tnet.table_ii_instance("abilene", device="cpu"))
-    with pytest.raises(NotImplementedError, match="Sparse batching"):
-        tev.pad_fleet([inst], spare_apps=1)
+    ref = jev.pad_fleet([jnet.with_sparse(jnet.table_ii_instance("abilene"))], spare_apps=1)[0]
+    got = tev.pad_fleet([inst], spare_apps=1)[0]
+    assert got.has_sparse and got.A == inst.A + 1
+    for f in tnet.DENSE_FIELDS + tnet.SPARSE_FIELDS:
+        assert np.array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f))), f
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +351,7 @@ def test_accelerated_scan_chunk_app_mask_matches_reference():
         phi=_tphi(c1.phi), best_cost=_t(c1.best_cost), stall=_t(c1.stall).long(),
         done=_t(c1.done), iters=_t(c1.iters).long(), cost=_t(c1.cost),
         residual=_t(c1.residual), alpha=_t(c1.alpha), ax=_t(c1.ax), af=_t(c1.af),
-        ak=_t(c1.ak).long())
+        ak=_t(c1.ak).long(), tb=_t(c1.tb))
     start = carry.phi
     costs, accepted = [], 0
     for _ in range(8):      # one step a chunk: every committed iterate seen
@@ -395,7 +401,7 @@ def test_reset_carry_matches_reference(keep_window):
         phi=_tphi(c1.phi), best_cost=_t(c1.best_cost), stall=_t(c1.stall).long(),
         done=_t(c1.done), iters=_t(c1.iters).long(), cost=_t(c1.cost),
         residual=_t(c1.residual), alpha=_t(c1.alpha), ax=_t(c1.ax), af=_t(c1.af),
-        ak=_t(c1.ak).long())
+        ak=_t(c1.ak).long(), tb=_t(c1.tb))
     assert int(carry.ak) == 5 and float(carry.alpha) == 0.0 and int(carry.iters) == 7
     got = teng.reset_carry(tinst2, carry.phi, carry, keep_window=keep_window)
     assert _rel(got.cost, want.cost) <= TOL and torch.equal(got.cost, got.best_cost)

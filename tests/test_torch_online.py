@@ -158,8 +158,9 @@ def test_events_touch_only_their_member():
 
 
 def test_telemetry_and_devices():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Observability"):
-        OnlineSolver([_abilene(0.5)], telemetry=True, device="cpu")
+    solver = OnlineSolver([_abilene(0.5)], telemetry=True, device="cpu")
+    assert len(solver.iter_trace) == int(solver.cold_iters.sum()) > 0
+    assert {r["event"] for r in solver.iter_trace} == {-1}
     with pytest.raises(ValueError, match="instance is on cpu"):
         OnlineSolver([_abilene(0.5)], device="meta")
     from repro_torch import serve

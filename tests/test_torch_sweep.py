@@ -119,9 +119,9 @@ def test_padding_bit_equal_on_mixed_topology():
 
 def test_padding_refuses_what_is_not_ported():
     inst = tnet.with_sparse(tnet.table_ii_instance("abilene", device="cpu"))
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, Sparse batching and the metro leftovers"):
-        tbatch.pad_instances([inst])
+    # sparse families are ported: a sparse-dense mix is what is refused
+    with pytest.raises(ValueError, match="mix of sparse and dense"):
+        tbatch.pad_instances([inst, tnet.table_ii_instance("abilene", device="cpu")])
     with pytest.raises(NotImplementedError, match="Queue 1, Multi-device"):
         tsc.solve_family([tnet.table_ii_instance("abilene", device="cpu")], mesh=object())
     with pytest.raises(ValueError, match="cost families"):
@@ -185,7 +185,7 @@ def test_accelerated_scan_chunk_matches_reference():
         phi=Phi(e=t(c1.phi.e), c=t(c1.phi.c)), best_cost=t(c1.best_cost),
         stall=t(c1.stall).long(), done=t(c1.done), iters=t(c1.iters).long(),
         cost=t(c1.cost), residual=t(c1.residual), alpha=t(c1.alpha),
-        ax=t(c1.ax), af=t(c1.af), ak=t(c1.ak).long())
+        ax=t(c1.ax), af=t(c1.af), ak=t(c1.ak).long(), tb=t(c1.tb))
     assert int(carry.ak) == 5
     got, cs, rs, rec = teng.scan_chunk(
         tinst, carry, torch.tensor(0.1), 1e-4, 40, 300, length=6,
