@@ -131,8 +131,9 @@ phase:
      H=16, KV=8, S=2048, hd=128) causal, with a 512-token window, at
      S=2000 (padded to 2048), and at hd=64 (32 heads, 4 KV heads);
      ``ssd_chunk`` at mamba2-780m's (B=4, 16 chunks of 128, H=48, P=64,
-     N=128, one B/C group), at one chunk, and through ``ops.ssd_chunk`` at
-     a 32-token prefill it pads to 128 rows.  ``library_ms`` of the
+     N=128, one B/C group), at one chunk, at the serve phase's cached
+     prefill (B=4, 2 chunks), and through ``ops.ssd_chunk`` at a 32-token
+     prefill it pads to 128 rows.  ``library_ms`` of the
      attention is ``scaled_dot_product_attention`` in float32 (timed only).
      Both kernels form their products on the tensor cores in three-term
      TF32 (float32-accurate; no PyTorch product uses TF32): each row also
@@ -169,6 +170,31 @@ phase:
   12. edge_profile — ``torch.profiler`` over one forward of each model:
      device ms in cuBLAS products, ``flash_attention``, ``ssd_chunk`` and
      the rest, and the idle share against the unprofiled forward.
+  12b. serve — the transformer serving path: first ``python -m
+     repro_torch.launch.serve --arch internlm2-1.8b`` (reduced, as the
+     reference's launcher runs it) exits 0.  Then internlm2-1.8b,
+     mamba2-780m and gemma2-9b at full width, random float32 weights from
+     a seeded generator on the card: a cached prefill of 4 x 256 tokens
+     into a float32 cache of 320 rows (launch counts set to 0 just before
+     and read just after: ``ssd_chunk`` once a layer for mamba2, nothing
+     for the attention models, whose cached attention has ``kv_len`` and
+     stays off the flash kernel) and 8 greedy decode steps, every logit
+     within 1e-3 (relative to max |logit|) of the cache-less forward over
+     the same tokens, and the decode step then timed at that cache (device
+     ms; launches, device ms and idle share from ``torch.profiler`` over 5
+     steps); for mamba2 the same prefill again through the plain versions,
+     its logits and carried conv and SSM states within 1e-3 (relative to
+     their max |value|) of the prefill through ``ssd_chunk``; for gemma2
+     also one request of 4,096 + 64 tokens in a cache of 4,224 rows, so its
+     local layers' window masks, its decode step timed there too; the engine with
+     one slot (4 requests of 12 tokens, 16 new each: every token the
+     forward's argmax over what the slot was fed, or within 1e-3 of it, a
+     tie reported) and with four (8 requests, the launcher's run: 16
+     in-range tokens each, a second run bit-equal; wall s, tokens/s, ms per
+     decode call, the decode step's device ms, launches and idle share from
+     ``torch.profiler`` over 10 steps, peak GB); for internlm2 the
+     forward with ``attn_impl="blockwise"`` within 1e-3 of the default one
+     on 4 x 2048 tokens.
 
   13. kernel (lu_solve, propagate_step) — the last two kernels against their
      plain versions, within 1e-5 relative: ``lu_solve`` on the sw-queue
@@ -318,7 +344,8 @@ Then the ``kernels`` line (each kernel's ``launches`` counted over the
 main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
-``propagate_step``, which lie on no solver path; ``prev_ms`` and
+``propagate_step``, which lie on no solver path; ``serve_prefill_launches``
+over the serve phase's three cached prefills; ``prev_ms`` and
 ``prev_commit`` for the seven redesigned kernels, the commit their earlier
 versions come from (for ``tagged`` and ``tagged_nbr`` the composition they
 replace, with ``prev_launches_per_call``); ``prev_ms`` null for the others and without
@@ -1817,6 +1844,8 @@ def phase_model_kernels(prev=None):
     ssd = [
         _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128, prev=prev),
         _ssd_row("mamba2-S128", 4, 1, 48, 64, 128, seed=1, prev=prev),
+        # the serve phase's cached prefill of 4 x 256 tokens
+        _ssd_row("mamba2-serve-prefill-S256", 4, 2, 48, 64, 128, seed=2, prev=prev),
     ]
     _ssd_short_check()
     ops.reset_launch_counts()
@@ -2062,6 +2091,325 @@ def phase_edge_forwards(chains, seed: int = 0):
                 f"{cfg.name}: {kernel} launched once per layer, nothing else: {counts}")
         _forward_profile(cfg.name, model, batch, ms)
         del model, logits, split, plain, x, packet
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The transformer serving path: cached prefill, decode, the engine, launcher
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("internlm2-1.8b", "mamba2-780m", "gemma2-9b")
+SERVE_B, SERVE_S, SERVE_ROWS, SERVE_STEPS = 4, 256, 320, 8
+WINDOW_PROMPT, WINDOW_ROWS = 4096 + 64, 4224    # gemma2's local window, passed
+ENGINE_PROMPT, ENGINE_NEW, ENGINE_ROWS = 12, 16, 128   # launch/serve.py's run
+TIE_TOL = 1e-3                    # a token off the forward's argmax: a tie within this
+
+
+def _teacher_forced(model, seq):
+    """The cache-less forward's logits over ``seq`` (B, L).  An SSM model
+    runs L padded to a whole number of 128-token chunks (its forward takes
+    no other length above 128); by causality the first L rows are unchanged."""
+    import torch
+
+    L = seq.shape[1]
+    if model.cfg.layer_kind(0) == "ssm" and L > 128 and L % 128:
+        seq = torch.cat([seq, seq.new_zeros(seq.shape[0], 128 - L % 128)], dim=1)
+    return model.apply({"tokens": seq})[:, :L]
+
+
+def _max_rel_rows(got, want, rows: int = 256) -> tuple[float, float]:
+    """``_max_rel`` of (B, S, ...) logits taken S-rows at a time: a long
+    prompt's float64 copies would not fit beside gemma2's weights."""
+    d = top = 0.0
+    for i in range(0, want.shape[1], rows):
+        g, w = got[:, i:i + rows].double(), want[:, i:i + rows].double()
+        d = max(d, float((g - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+    return d, d / max(top, 1e-30)
+
+
+def _cached_prefill(model, prompts, rows):
+    """Cached prefill of ``prompts`` into a float32 cache of ``rows`` rows:
+    (logits, cache, the ``ops`` launch counts of the prefill)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    cache = model.init_cache(prompts.shape[0], rows, dtype=torch.float32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits, cache = engine.make_prefill_step(model)(cache, {"tokens": prompts})
+    torch.cuda.synchronize()
+    return logits, cache, ops.launch_counts()
+
+
+def _cached_decode(model, prompts, rows, steps):
+    """Cached prefill of ``prompts``, then ``steps`` greedy decode steps:
+    (prefill logits, each step's logits, the tokens fed, the prefill's
+    launch counts, the prefill's cache entries (an SSM layer's as the
+    prefill left them: decode returns new ones; attention entries are
+    written on in place), the decode step timed after them: device ms, and
+    from ``torch.profiler`` over 5 steps its launches and device ms)."""
+    import torch
+    from repro_torch.serve import engine
+
+    logits, cache, counts = _cached_prefill(model, prompts, rows)
+    prefilled = list(cache)
+    step = engine.make_serve_step(model)
+    fed, outs = [prompts], []
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    S = prompts.shape[1]
+    for i in range(steps):
+        fed.append(nxt)
+        nxt, cache, last = step(cache, nxt, S + i)
+        outs.append(last)
+    # the step once more at the next row, again and again (it rewrites that
+    # row, and SSM layers return a new state): the decode step at this cache
+    at = S + steps
+    step_ms = time_ms(lambda: step(cache, nxt, at), reps=5)
+    kern = device_kernels(lambda: step(cache, nxt, at), calls=5)
+    busy = sum(ms for ms, _ in kern.values()) / 5
+    timing = {"decode_step_ms": step_ms,
+              "device_launches_per_step": sum(n for _, n in kern.values()) / 5,
+              "device_ms_per_step": busy if busy > 0 else None,
+              "idle_share": 1 - busy / step_ms if busy > 0 else None}
+    return logits, torch.stack(outs, 1), torch.cat(fed, 1), counts, prefilled, timing
+
+
+def _ssd_prefill_vs_plain(model, prompts, rows, logits, cache) -> dict:
+    """An SSM model's cached prefill again through the plain versions, on the
+    same prompts: the logits and the carried states (conv, SSM) held to the
+    prefill through ``ssd_chunk`` within FORWARD_TOL, as the edge phase
+    holds its forward through the kernels to the plain one."""
+    with through_plain_versions():
+        plain, plain_cache, counts = _cached_prefill(model, prompts, rows)
+    l_abs, l_rel = _max_rel_rows(logits, plain)
+    conv = max(_max_rel(g[0], w[0])[1] for g, w in zip(cache, plain_cache))
+    state = max(_max_rel(g[1], w[1])[1] for g, w in zip(cache, plain_cache))
+    require(max(l_rel, conv, state) <= FORWARD_TOL and counts["ssd_chunk"] == 0,
+            f"{model.cfg.name}: cached prefill through ssd_chunk vs the plain versions: "
+            f"logits {l_rel}, conv state {conv}, SSM state {state}, launches {counts}")
+    return {"plain_prefill_max_abs_err": l_abs, "plain_prefill_max_rel_err": l_rel,
+            "plain_conv_state_max_rel_err": conv, "plain_ssm_state_max_rel_err": state}
+
+
+def _check_cached(model, prompts, rows, what) -> dict:
+    """Checks 1 and 2: the cached prefill and SERVE_STEPS decode steps
+    against the cache-less forward over the same tokens; for an SSM model
+    the prefill against itself through the plain versions; the decode
+    step's time at this cache."""
+    import torch
+
+    t0 = time.perf_counter()
+    logits, steps, seq, counts, prefilled, timing = _cached_decode(model, prompts, rows,
+                                                                   SERVE_STEPS)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    S = prompts.shape[1]
+    ref = _teacher_forced(model, seq)
+    p_abs, p_rel = _max_rel_rows(logits, ref[:, :S])
+    d_rel = [_max_rel(steps[:, i], ref[:, S + i])[1] for i in range(SERVE_STEPS)]
+    row = {"check": what, "batch": list(prompts.shape), "cache_rows": rows,
+           "prefill_max_abs_err": p_abs, "prefill_max_rel_err": p_rel,
+           "decode_max_rel_err": d_rel, "prefill_launches": counts,
+           "cached_s": cached_s, **timing}
+    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(steps).all()),
+            f"{model.cfg.name} {what}: finite logits")
+    require(p_rel <= FORWARD_TOL, f"{model.cfg.name} {what}: prefill vs forward {p_rel}")
+    require(max(d_rel) <= FORWARD_TOL,
+            f"{model.cfg.name} {what}: decode vs forward {d_rel}")
+    del ref, steps
+    if model.cfg.layer_kind(0) == "ssm":
+        row.update(_ssd_prefill_vs_plain(model, prompts, rows, logits, prefilled))
+    return row
+
+
+def _engine_prompts(cfg, n):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=ENGINE_PROMPT) for _ in range(n)]
+
+
+def _engine_one_slot(model) -> dict:
+    """Check 3: one slot, 4 requests; each generated token the argmax of
+    the cache-less forward over the tokens fed before it, or within
+    TIE_TOL of its top logit (a tie, reported)."""
+    import torch
+    from _torch_cases import engine_fed_stream
+    from repro_torch.serve import engine
+
+    prompts = _engine_prompts(model.cfg, 4)
+    eng = engine.ServeEngine(model, slots=1, max_len=ENGINE_ROWS)
+    for p in prompts:
+        eng.submit(p, max_new=ENGINE_NEW)
+    done = eng.run()
+    outs = [done[u] for u in sorted(done)]
+    stream = engine_fed_stream(prompts, outs)
+    logits = _teacher_forced(model, torch.tensor([stream], device=model.device))[0]
+    per = ENGINE_PROMPT + ENGINE_NEW
+    fed_at = [r * per + ENGINE_PROMPT + j for r in range(len(prompts))
+              for j in range(ENGINE_NEW)]
+    rows = logits[fed_at].double()
+    got = torch.tensor([x for out in outs for x in out], device=model.device)
+    top = rows.max(-1).values
+    short = (top - rows.gather(1, got[:, None])[:, 0]) / rows.abs().max()
+    ties = [[i // ENGINE_NEW, i % ENGINE_NEW, float(short[i])]
+            for i in range(len(fed_at)) if int(got[i]) != int(rows[i].argmax())]
+    require(len(stream) <= ENGINE_ROWS and all(len(o) == ENGINE_NEW for o in outs),
+            f"{model.cfg.name}: one-slot engine finished every request")
+    require(all(s <= TIE_TOL for *_, s in ties),
+            f"{model.cfg.name}: one-slot engine tokens off the forward's argmax: {ties}")
+    return {"check": "engine_one_slot", "requests": len(prompts), "tokens": len(fed_at),
+            "off_argmax_ties": ties}
+
+
+def _engine_four_slots(model) -> dict:
+    """Check 4: the launcher's run (4 slots, 8 requests) twice, bit for bit;
+    wall time, tokens/s, ms per decode call, and a profile of 10 decode
+    steps (launches and device ms a step, idle share); peak memory."""
+    import torch
+    from repro_torch.serve import engine
+
+    prompts = _engine_prompts(model.cfg, 8)
+
+    def serve(timer=None):
+        eng = engine.ServeEngine(model, slots=4, max_len=ENGINE_ROWS)
+        if timer is not None:
+            step = eng._decode
+
+            def timed_step(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                timer.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            eng._decode = timed_step
+        for p in prompts:
+            eng.submit(p, max_new=ENGINE_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, wall = serve()
+    call_ms = []
+    again, _ = serve(call_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ntok = sum(len(v) for v in first.values())
+    require(sorted(first) == list(range(1, 9))
+            and all(len(v) == ENGINE_NEW and all(0 <= x < model.cfg.vocab for x in v)
+                    for v in first.values()),
+            f"{model.cfg.name}: four-slot engine: every request 16 in-range tokens")
+    require(first == again, f"{model.cfg.name}: four-slot engine: a second run's tokens differ")
+    # the decode step alone, at the engine's shapes
+    cache = model.init_cache(4, ENGINE_ROWS, dtype=torch.float32)
+    toks = torch.zeros((4, 1), dtype=torch.int64, device=model.device)
+    step = engine.make_serve_step(model)
+    step_ms = time_ms(lambda: step(cache, toks, 64), reps=5)
+    kern = device_kernels(lambda: step(cache, toks, 64), calls=10)
+    busy = sum(ms for ms, _ in kern.values()) / 10
+    traced = busy > 0
+    return {"check": "engine_four_slots", "requests": len(first), "tokens": ntok,
+            "decode_calls": len(call_ms), "wall_s": wall, "tokens_per_s": ntok / wall,
+            "ms_per_decode_call_median": statistics.median(call_ms),
+            "decode_step_ms": step_ms,
+            "device_launches_per_step": sum(n for _, n in kern.values()) / 10,
+            "device_ms_per_step": busy if traced else None,
+            "idle_share": 1 - busy / step_ms if traced else None,
+            "peak_gb": peak_gb, "bit_equal_rerun": True}
+
+
+def _blockwise_check(model) -> dict:
+    """Check 5: ``attn_impl="blockwise"`` against the default forward on
+    EDGE_B x EDGE_S tokens, the same weights."""
+    import torch
+    from repro_torch.models import transformer
+
+    bw = transformer.Model(model.cfg, attn_impl="blockwise")
+    bw.load_state_dict(model.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (EDGE_B, EDGE_S), generator=g,
+                                     device="cuda")}
+    out = {}
+    for label, m in (("default", model), ("blockwise", bw)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = m.apply(batch)
+        torch.cuda.synchronize()
+        out[label + "_ms"] = (time.perf_counter() - t0) * 1e3
+    b_abs, b_rel = _max_rel(out["blockwise"], out["default"])
+    require(b_rel <= FORWARD_TOL, f"{model.cfg.name}: blockwise vs default forward {b_rel}")
+    row = {"check": "sdpa_blockwise", "batch": [EDGE_B, EDGE_S], "max_abs_err": b_abs,
+           "max_rel_err": b_rel, "ms_forward": out["default_ms"],
+           "blockwise_ms_forward": out["blockwise_ms"]}
+    del bw, out
+    return row
+
+
+def _launcher_check() -> dict:
+    """Check 6: ``python -m repro_torch.launch.serve --arch internlm2-1.8b``,
+    reduced as the reference's launcher runs it, exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "internlm2-1.8b"], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.splitlines()
+    require(res.returncode == 0 and lines and lines[0].startswith("served 8/8 requests"),
+            f"launch/serve.py exited {res.returncode}: {res.stdout[-400:]} "
+            f"{res.stderr[-800:]}")
+    return {"check": "launcher", "seconds": time.perf_counter() - t0, "line": lines[0]}
+
+
+def phase_serve(seed: int = 0) -> dict:
+    """The serving path at full width, one model after another: cached
+    prefill and decode against the cache-less forward (and gemma2's window
+    at 4,096 + 64 tokens), the engine with one slot and with four, the
+    blockwise attention, and the launcher.  Returns each kernel's launches
+    over the cached prefills."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    emit({"phase": "serve", "part": "launcher", **_launcher_check(), "card": CARD})
+    launches = {}
+    for i, name in enumerate(SERVE_ARCHS):
+        cfg = configs.get(name)
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cuda").manual_seed(seed + 200 + i)
+        model = transformer.Model(cfg).init(g)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "serve", "model": name,
+              "params": sum(p.numel() for p in model.parameters()),
+              "init_s": time.perf_counter() - t0, "card": CARD})
+        row = _check_cached(model, prompts, SERVE_ROWS, "cached_prefill_decode")
+        counts = row["prefill_launches"]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        want = {k: (cfg.n_layers if k == "ssd_chunk" and cfg.layer_kind(0) == "ssm" else 0)
+                for k in counts}
+        require(counts == want, f"{name}: cached prefill launches {counts}, want {want}")
+        emit({"phase": "serve", "model": name, **row, "card": CARD})
+        if cfg.local_global:
+            long = torch.randint(0, cfg.vocab, (1, WINDOW_PROMPT), generator=g,
+                                 device="cuda")
+            emit({"phase": "serve", "model": name, "window": cfg.window,
+                  **_check_cached(model, long, WINDOW_ROWS, "window"), "card": CARD})
+            del long
+        emit({"phase": "serve", "model": name, **_engine_one_slot(model), "card": CARD})
+        emit({"phase": "serve", "model": name, **_engine_four_slots(model), "card": CARD})
+        if cfg.layer_kind(0) == "attn" and not cfg.local_global:
+            emit({"phase": "serve", "model": name, **_blockwise_check(model), "card": CARD})
+        del model, prompts
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     return launches
@@ -3540,6 +3888,7 @@ def main(argv=None) -> int:
     kernels.update(phased("model_kernels", phase_model_kernels, prev))
     chains = phased("edge_gp", phase_edge_gp, ref_edge)
     model_launches = phased("edge_forwards", phase_edge_forwards, chains)
+    serve_launches = phased("serve", phase_serve)
     for name, rows in phased("solve_kernels", phase_solve_kernels).items():
         kernels[name] = rows + kernels.get(name, [])
     oracle_launches = phased("oracle", phase_oracle)
@@ -3615,6 +3964,7 @@ def main(argv=None) -> int:
                      "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"],
+                     "serve_prefill_launches": serve_launches[name],
                      "bound_tc_ms": main_row.get("bound_tc_ms"),
                      "prev_ms": main_row.get("prev_ms"),
                      "prev_launches_per_call": main_row.get("prev_launches_per_call"),

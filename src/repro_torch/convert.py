@@ -106,3 +106,32 @@ def model_params_from_numpy(cfg, tree: dict) -> dict:
         for c in range(n_periods):
             put(n_prefix + c * period + p, block, lambda a, c=c: np.asarray(a)[c])
     return out
+
+
+def _cache_tensor(x, dev) -> torch.Tensor:
+    """A cache array as a tensor of its own dtype; bfloat16 arrays (numpy's
+    ``ml_dtypes`` type, which torch does not read) go through float32,
+    exactly."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.tensor(x.astype(np.float32), device=dev).to(torch.bfloat16)
+    return torch.tensor(x, device=dev)
+
+
+def cache_from_numpy(cfg, tree: dict, device: Device = "cuda") -> list:
+    """The port's per-layer cache (``Model.init_cache``'s form, on
+    ``device``) from the reference's cache as nested lists of numpy arrays:
+    ``{"prefix": [entry, ...], "body": [entry, ...]}``, each entry a pair
+    ((k, v) or (conv state, SSM state)), a body entry's arrays stacked by
+    period as ``model_params_from_numpy`` unstacks them."""
+    dev = resolve_device(device)
+    n_prefix, period = _layer_period(cfg)
+    n_periods = (cfg.n_layers - n_prefix) // period
+    out = [None] * cfg.n_layers
+    for i, entry in enumerate(tree.get("prefix", [])):
+        out[i] = tuple(_cache_tensor(a, dev) for a in entry)
+    for p, entry in enumerate(tree["body"]):
+        for c in range(n_periods):
+            out[n_prefix + c * period + p] = tuple(_cache_tensor(np.asarray(a)[c], dev)
+                                                   for a in entry)
+    return out

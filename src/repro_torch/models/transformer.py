@@ -1,9 +1,12 @@
 """Config-driven model: embedding -> block stack -> final norm -> head.
 
-Port of ``repro.models.transformer`` for the cache-less forward (score /
-prefill without a cache).  One :class:`~repro_torch.models.blocks.Block`
-module per layer, in order; the reference's scan over layer periods is
-gone (``convert.model_params_from_numpy`` unstacks its period axis).
+Port of ``repro.models.transformer``: the cache-less forward (score /
+prefill without a cache), the cached prefill and the single-token decode
+(``Model.apply`` with a cache from ``Model.init_cache``).  One
+:class:`~repro_torch.models.blocks.Block` module per layer, in order, and
+one cache entry per layer; the reference's scan over layer periods is
+gone (``convert.model_params_from_numpy`` and ``convert.cache_from_numpy``
+unstack its period axis).
 
 ``Model`` allocates its parameters on the device (CUDA unless the caller
 asks for the CPU) and :meth:`Model.init` fills them from a seeded
@@ -19,19 +22,25 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.network import Device, resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import attention, blocks, layers
 
 
 class Model(nn.Module):
     """Parameters: ``embedding`` (vocab, d), ``final_norm`` (d), ``lm_head``
     (d, vocab) unless tied, ``layers.<i>.*`` per block."""
 
-    def __init__(self, cfg: ModelConfig, *, device: Device = "cuda"):
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "naive",
+                 device: Device = "cuda"):
         super().__init__()
         cfg.validate()
         blocks.check_supported(cfg)
+        if attn_impl not in ("naive", "blockwise"):
+            raise ValueError(f"attn_impl {attn_impl!r}: 'naive' or 'blockwise'")
         dev = resolve_device(device)
         self.cfg = cfg
+        # "blockwise": attention.sdpa_blockwise, online softmax over KV blocks;
+        # passed to the blocks at each call
+        self.attn_impl = attn_impl
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, device=dev), requires_grad=False)
@@ -41,7 +50,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = param(cfg.d_model, cfg.vocab)
         self.layers = nn.ModuleList(
-            blocks.Block(cfg, blocks.layer_meta(cfg, i), dev) for i in range(cfg.n_layers))
+            blocks.Block(cfg, blocks.layer_meta(cfg, i), dev)
+            for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -75,7 +85,7 @@ class Model(nn.Module):
         if positions is None:
             positions = self.positions(x.shape[0], x.shape[1])
         for block in self.layers[start:stop]:
-            x = block(x, positions)
+            x, _ = block(x, positions, impl=self.attn_impl)
         return x
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,16 +93,53 @@ class Model(nn.Module):
         w = self.embedding.T if self.cfg.tie_embeddings else self.lm_head
         return layers.softcap((x @ w).float(), self.cfg.final_softcap)
 
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list:
+        """One empty cache entry per layer, in layer order, on the model's
+        device: (k, v) of (batch, max_len, KV, hd) for attention layers,
+        (conv state, float32 SSM state) for SSM layers."""
+        return [blocks.init_block_cache(self.cfg, block.meta, batch, max_len, dtype,
+                                        self.device)
+                for block in self.layers]
+
     @torch.no_grad()
-    def apply(self, batch: dict) -> torch.Tensor:
-        """Cache-less forward: {"tokens": (B, S)} -> logits (B, S, vocab)."""
-        return self.head(self.apply_layers(self.embed(batch)))
+    def apply(self, batch: dict, cache: list | None = None,
+              cache_index: int | None = None):
+        """{"tokens": (B, S)} -> logits (B, S, vocab), float32.
+
+        With a ``cache`` (:meth:`init_cache`), the S tokens sit at positions
+        ``cache_index .. cache_index + S - 1`` (0 if None) and attend to the
+        cache's first ``cache_index + S`` rows; returns ``(logits,
+        new_cache)``.  Attention caches are written in place; SSM layers'
+        entries are new tensors, so use the returned list.
+        """
+        x = self.embed(batch)
+        B, S = x.shape[:2]
+        ci = 0 if cache_index is None else int(cache_index)
+        positions = self.positions(B, S)
+        if ci:
+            positions = positions + ci
+        if cache is None:
+            return self.head(self.apply_layers(x, positions=positions))
+        attn = [i for i, b in enumerate(self.layers) if b.meta.kind == "attn"]
+        view = None
+        if attn:
+            # the cache rows' positions, valid prefixes and masks, once a call
+            view = attention.cache_view(
+                self.cfg, positions, cache[attn[0]][0].shape[1], ci,
+                [self.layers[i].meta.window for i in attn], self.attn_impl)
+        new_cache = []
+        for block, c in zip(self.layers, cache, strict=True):
+            x, c = block(x, positions, cache=c, cache_index=ci, impl=self.attn_impl,
+                         view=view)
+            new_cache.append(c)
+        return self.head(x), new_cache
 
 
-def make_model(cfg_or_name, *, reduced: bool = False, device: Device = "cuda") -> Model:
+def make_model(cfg_or_name, *, reduced: bool = False, attn_impl: str = "naive",
+               device: Device = "cuda") -> Model:
     if isinstance(cfg_or_name, str):
         from repro_torch import configs
         cfg = configs.get(cfg_or_name, reduced=reduced)
     else:
         cfg = cfg_or_name
-    return Model(cfg, device=device)
+    return Model(cfg, attn_impl=attn_impl, device=device)

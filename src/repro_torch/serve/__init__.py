@@ -1,30 +1,31 @@
-"""Serving layer: the online GP service (and, later, the transformer serve
-engine).
+"""Serving layer: the transformer serve engine and the online GP service.
 
 Port of ``repro.serve``'s lazy exports: importing the package loads
-neither module.  ``OnlineSolver``, ``EventReport``, ``HealthReport`` and
-``FleetHealth`` come from :mod:`repro_torch.serve.online`.  The transformer
-serve engine (``ServeEngine``, ``make_serve_step``, ``make_prefill_step``,
-``Request``) is not ported yet: asking for one raises.
+neither module.  ``ServeEngine``, ``make_serve_step``,
+``make_prefill_step`` and ``Request`` come from
+:mod:`repro_torch.serve.engine` (which pulls in the model stack);
+``OnlineSolver``, ``EventReport``, ``HealthReport`` and ``FleetHealth``
+from :mod:`repro_torch.serve.online`.
 """
 
 from typing import TYPE_CHECKING
 
 if TYPE_CHECKING:  # pragma: no cover - static analysis only
+    from repro_torch.serve.engine import (Request, ServeEngine,  # noqa: F401
+                                          make_prefill_step, make_serve_step)
     from repro_torch.serve.online import (EventReport, FleetHealth,  # noqa: F401
                                           HealthReport, OnlineSolver)
 
 _ENGINE = ("ServeEngine", "make_serve_step", "make_prefill_step", "Request")
 _ONLINE = ("OnlineSolver", "EventReport", "HealthReport", "FleetHealth")
 
-__all__ = list(_ONLINE)
+__all__ = list(_ENGINE + _ONLINE)
 
 
 def __getattr__(name):
     if name in _ENGINE:
-        raise NotImplementedError(
-            f"serve.{name} (the transformer serve engine) is not ported yet: "
-            "ROADMAP Queue 1, Transformer substrate, the rest")
+        from repro_torch.serve import engine
+        return getattr(engine, name)
     if name in _ONLINE:
         from repro_torch.serve import online
         return getattr(online, name)

@@ -2315,3 +2315,15 @@ def ring_parity(rows, ref_rows, ladder_costs=None, twin_rows=None) -> dict:
     return {"ok": not why, "why": why, "flip": flip, "rows": n, "cost_max_rel": float(cost_rel),
             "residual_max_rel": float(res_rel), "reference_spread": spread,
             "rows_before_flip": horizon}
+
+
+def engine_fed_stream(prompts, outs) -> list:
+    """The tokens a one-slot ``ServeEngine`` feeds, in cache order: each
+    request's prompt, its last prompt token again (the first decode's
+    input), and its outputs but the last.  Generated token ``j`` of request
+    ``r`` is the prediction at row ``r * (P + N) + P + j`` (prompts of P
+    tokens, N new each)."""
+    stream = []
+    for p, out in zip(prompts, outs):
+        stream += [int(x) for x in p] + [int(p[-1])] + [int(x) for x in out[:-1]]
+    return stream

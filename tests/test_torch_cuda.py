@@ -781,6 +781,42 @@ def test_short_prefill_forward_on_card(cuda, monkeypatch, S):
     _forward_on_card(monkeypatch, cuda, "mamba2-780m", S)
 
 
+@pytest.mark.parametrize("S", [100, 256])
+def test_cached_ssm_prefill_on_card(cuda, monkeypatch, S):
+    """A reduced mamba2's cached prefill, from an empty cache and again from
+    the state it left (h0), goes through ``ssd_chunk`` once a layer a
+    prefill and agrees with the same prefills through the plain versions;
+    a decode step after it too."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import transformer
+
+    model = transformer.make_model("mamba2-780m", reduced=True).init(5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    toks = torch.randint(0, model.cfg.vocab, (2, 2 * S + 1), generator=gen, device=cuda)
+
+    def run():
+        cache = model.init_cache(2, 2 * S + 1, dtype=torch.float32)
+        outs = []
+        for lo, hi in ((0, S), (S, 2 * S), (2 * S, 2 * S + 1)):
+            logits, cache = model.apply({"tokens": toks[:, lo:hi]}, cache=cache,
+                                        cache_index=lo)
+            outs.append(logits)
+        return outs, cache
+
+    ops.reset_launch_counts()
+    outs, cache = run()
+    assert ops.launch_counts()["ssd_chunk"] == 2 * model.cfg.n_layers
+    with monkeypatch.context() as m:
+        m.setattr(sc, "ssd_chunk_fwd", sc.ssd_chunk_plain)
+        plain, plain_cache = run()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, plain):
+        assert bool(torch.isfinite(got).all())
+        assert _max_rel(got, want) <= 1e-4
+    for got, want in zip(cache, plain_cache):
+        assert _max_rel(got[1], want[1]) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # lu_solve, propagate_step and the member-batched solve
 # ---------------------------------------------------------------------------
