@@ -129,7 +129,10 @@ phase:
      versions on the card, within 2e-5 of the plain version's largest
      |value|: ``flash_attention`` at internlm2-1.8b's full width (B=4,
      H=16, KV=8, S=2048, hd=128) causal, with a 512-token window, at
-     S=2000 (padded to 2048), and at hd=64 (32 heads, 4 KV heads);
+     S=2000 (padded to 2048), at hd=64 (32 heads, 4 KV heads), and at
+     mixtral-8x22b's heads (H=48, KV=8: a GQA group of 6) with its
+     4,096-token window at S=2048 (B=4; not binding) and S=4,352 (B=1;
+     binding);
      ``ssd_chunk`` at mamba2-780m's (B=4, 16 chunks of 128, H=48, P=64,
      N=128, one B/C group), at one chunk, at the serve phase's cached
      prefill (B=4, 2 chunks), and through ``ops.ssd_chunk`` at a 32-token
@@ -173,8 +176,9 @@ phase:
   12b. serve — the transformer serving path: first ``python -m
      repro_torch.launch.serve --arch internlm2-1.8b`` (reduced, as the
      reference's launcher runs it) exits 0.  Then internlm2-1.8b,
-     mamba2-780m and gemma2-9b at full width, random float32 weights from
-     a seeded generator on the card: a cached prefill of 4 x 256 tokens
+     mamba2-780m and gemma2-9b at full width, each cut to 8 layers (of 24,
+     48, 42; their host-bound decode steps set the phase's time), random
+     float32 weights from a seeded generator on the card: a cached prefill of 4 x 256 tokens
      into a float32 cache of 320 rows (launch counts set to 0 just before
      and read just after: ``ssd_chunk`` once a layer for mamba2, nothing
      for the attention models, whose cached attention has ``kv_len`` and
@@ -195,6 +199,28 @@ phase:
      ``torch.profiler`` over 10 steps, peak GB); for internlm2 the
      forward with ``attn_impl="blockwise"`` within 1e-3 of the default one
      on 4 x 2048 tokens.
+  12c. moe — mixtral-8x22b at full width (d 6144, 48/8 heads, 8 experts of
+     f 16384, top 2, window 4,096), 4 of its 56 layers (41.7 GB of float32
+     weights from a seeded generator on the card): (a) the first layer's
+     ``moe.apply`` on 4 x 2048 normal rows (C = 2,560) against the
+     per-expert route of ``tests/_torch_moe_cases.py`` within 1e-5
+     (relative to its max |value|) and its float64 evaluation within 2e-5,
+     the aux loss within 1e-6, the kept choices equal, the choices dropped
+     at capacity factor 1.25 printed; (b) the reference test's 2 x 32
+     identical tokens (C = 24): both experts of the pair get all 64 choices
+     and keep their first 24, the output the route's within 1e-5; (c) the
+     forward of 4 x 2048 tokens (launches counted: ``flash_attention`` once
+     a layer, nothing else) and (d) of 1 x 4,352 (the window binds), each
+     within 1e-3 of the same forward through the plain versions, which
+     takes the first run's expert choices where its own differ by a tie
+     within 1e-4 in probability (the forced tokens printed); ms per forward
+     and ``moe_profile`` (device ms by part, idle share); (e) at capacity
+     factor 8.0 (a decode step routes B tokens into other capacities than
+     a forward over the sequence, so the two drop differently at 1.25; the
+     reference's decode test runs at 8.0) the serve phase's cached prefill
+     of 4 x 256 tokens and 8 decode steps against the forward, the decode
+     step's ms, launches, device ms and idle share beside its 41.7 GB
+     weight-read bound, and the engine with one slot and with four.
 
   13. kernel (lu_solve, propagate_step) — the last two kernels against their
      plain versions, within 1e-5 relative: ``lu_solve`` on the sw-queue
@@ -345,7 +371,9 @@ main path it lies on: the sw-queue default solve for the dense route's
 three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
 ``propagate_step``, which lie on no solver path; ``serve_prefill_launches``
-over the serve phase's three cached prefills; ``prev_ms`` and
+over the serve phase's three cached prefills; ``moe_forward_launches``
+over the moe phase's forward of 4 x 2048 tokens, which ``launches`` adds
+to the edge forward's for ``flash_attention``; ``prev_ms`` and
 ``prev_commit`` for the seven redesigned kernels, the commit their earlier
 versions come from (for ``tagged`` and ``tagged_nbr`` the composition they
 replace, with ``prev_launches_per_call``); ``prev_ms`` null for the others and without
@@ -1840,6 +1868,12 @@ def phase_model_kernels(prev=None):
         _flash_row("internlm2-window512", 4, 16, 8, 2048, 128, window=512, seed=1, prev=prev),
         _flash_row("internlm2-S2000-padded", 4, 16, 8, 2000, 128, seed=2, prev=prev),
         _flash_row("hd64-tinyllama-heads", 4, 32, 4, 2048, 64, seed=3, prev=prev),
+        # mixtral-8x22b's heads (a GQA group of 6) and 4,096-token window:
+        # not binding at 2,048 tokens, binding at 4,352
+        _flash_row("mixtral-swa4096-S2048", 4, 48, 8, 2048, 128, window=4096, seed=4,
+                   prev=prev),
+        _flash_row("mixtral-swa4096-S4352", 1, 48, 8, MOE_WINDOW_S, 128, window=4096,
+                   seed=5, prev=prev),
     ]
     ssd = [
         _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128, prev=prev),
@@ -1980,8 +2014,8 @@ def _edge_steady_solve(ref, chains):
             f"steady solve: history within {rel}, final cost within {final} of the reference's")
 
 
-def _forward_profile(name, model, batch, ms_forward):
-    """``edge_profile``: where one forward's device time goes."""
+def _forward_profile(name, model, batch, ms_forward, phase="edge_profile"):
+    """``edge_profile`` (or ``phase``): where one forward's device time goes."""
     kern = device_kernels(lambda: model.apply(batch))
     busy = sum(ms for ms, _ in kern.values())
     traced = busy > 0
@@ -2000,7 +2034,7 @@ def _forward_profile(name, model, batch, ms_forward):
     for k, (ms, _) in kern.items():
         split[part(k)] += ms
     top = sorted(((ms, k) for k, (ms, _) in kern.items() if part(k) == "rest"), reverse=True)
-    emit({"phase": "edge_profile", "model": name,
+    emit({"phase": phase, "model": name,
           "device_ms": busy if traced else None, "device_ms_by_part": split,
           "device_launches": sum(n for _, n in kern.values()),
           "idle_share": 1 - busy / ms_forward if traced else None,
@@ -2101,10 +2135,20 @@ def phase_edge_forwards(chains, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 SERVE_ARCHS = ("internlm2-1.8b", "mamba2-780m", "gemma2-9b")
+# Depth of the serve phase's models (of 24 / 48 / 42): their decode steps are
+# host bound, about 75-95 launches a layer, and at full depth the phase took
+# a fifth of the smoke's time limit on a slow host.  Eight layers keep
+# gemma2's local/global pairs.
+SERVE_LAYERS = 8
 SERVE_B, SERVE_S, SERVE_ROWS, SERVE_STEPS = 4, 256, 320, 8
 WINDOW_PROMPT, WINDOW_ROWS = 4096 + 64, 4224    # gemma2's local window, passed
 ENGINE_PROMPT, ENGINE_NEW, ENGINE_ROWS = 12, 16, 128   # launch/serve.py's run
 TIE_TOL = 1e-3                    # a token off the forward's argmax: a tie within this
+# Two runs of an MoE model that differ by float32 rounding (kernels and plain
+# versions; cached and cache-less) may route a token otherwise where two
+# experts' probabilities tie: the second run then takes the first's choices,
+# if their probabilities lie within this of its own (reported).
+ROUTE_TIE = 1e-4
 
 
 def _teacher_forced(model, seq):
@@ -2151,20 +2195,23 @@ def _cached_decode(model, prompts, rows, steps):
     launch counts, the prefill's cache entries (an SSM layer's as the
     prefill left them: decode returns new ones; attention entries are
     written on in place), the decode step timed after them: device ms, and
-    from ``torch.profiler`` over 5 steps its launches and device ms)."""
+    from ``torch.profiler`` over 5 steps its launches and device ms; the
+    expert ids of the prefill's and steps' MoE layers, in call order)."""
     import torch
+    from _torch_moe_cases import recorded_routes
     from repro_torch.serve import engine
 
-    logits, cache, counts = _cached_prefill(model, prompts, rows)
-    prefilled = list(cache)
-    step = engine.make_serve_step(model)
-    fed, outs = [prompts], []
-    nxt = logits[:, -1].argmax(-1)[:, None]
-    S = prompts.shape[1]
-    for i in range(steps):
-        fed.append(nxt)
-        nxt, cache, last = step(cache, nxt, S + i)
-        outs.append(last)
+    with recorded_routes() as routes:
+        logits, cache, counts = _cached_prefill(model, prompts, rows)
+        prefilled = list(cache)
+        step = engine.make_serve_step(model)
+        fed, outs = [prompts], []
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        S = prompts.shape[1]
+        for i in range(steps):
+            fed.append(nxt)
+            nxt, cache, last = step(cache, nxt, S + i)
+            outs.append(last)
     # the step once more at the next row, again and again (it rewrites that
     # row, and SSM layers return a new state): the decode step at this cache
     at = S + steps
@@ -2175,7 +2222,8 @@ def _cached_decode(model, prompts, rows, steps):
               "device_launches_per_step": sum(n for _, n in kern.values()) / 5,
               "device_ms_per_step": busy if busy > 0 else None,
               "idle_share": 1 - busy / step_ms if busy > 0 else None}
-    return logits, torch.stack(outs, 1), torch.cat(fed, 1), counts, prefilled, timing
+    return (logits, torch.stack(outs, 1), torch.cat(fed, 1), counts, prefilled, timing,
+            routes)
 
 
 def _ssd_prefill_vs_plain(model, prompts, rows, logits, cache) -> dict:
@@ -2195,26 +2243,52 @@ def _ssd_prefill_vs_plain(model, prompts, rows, logits, cache) -> dict:
             "plain_conv_state_max_rel_err": conv, "plain_ssm_state_max_rel_err": state}
 
 
+def _routed_like(model, routes, batch: int, forced: list):
+    """A context in which ``model``'s cache-less forward over the tokens of
+    the calls that recorded ``routes`` (their MoE layers' expert ids, in
+    call order) takes those ids where its own differ only by a tie
+    (ROUTE_TIE); the forced tokens are appended to ``forced``.  For a model
+    without MoE layers, nothing."""
+    from _torch_moe_cases import forced_routes, join_calls
+
+    n_moe = sum(b.meta.is_moe for b in model.layers)
+    if not n_moe:
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def ctx():
+        with forced_routes(join_calls(routes, n_moe, batch), ROUTE_TIE) as got:
+            yield
+        forced.extend(got)
+
+    return ctx()
+
+
 def _check_cached(model, prompts, rows, what) -> dict:
     """Checks 1 and 2: the cached prefill and SERVE_STEPS decode steps
     against the cache-less forward over the same tokens; for an SSM model
     the prefill against itself through the plain versions; the decode
-    step's time at this cache."""
+    step's time at this cache.  An MoE model's forward takes the cached
+    run's expert choices where its own differ by a tie (reported)."""
     import torch
 
     t0 = time.perf_counter()
-    logits, steps, seq, counts, prefilled, timing = _cached_decode(model, prompts, rows,
-                                                                   SERVE_STEPS)
+    logits, steps, seq, counts, prefilled, timing, routes = _cached_decode(
+        model, prompts, rows, SERVE_STEPS)
     torch.cuda.synchronize()
     cached_s = time.perf_counter() - t0
     S = prompts.shape[1]
-    ref = _teacher_forced(model, seq)
+    forced = []
+    with _routed_like(model, routes, prompts.shape[0], forced):
+        ref = _teacher_forced(model, seq)
     p_abs, p_rel = _max_rel_rows(logits, ref[:, :S])
     d_rel = [_max_rel(steps[:, i], ref[:, S + i])[1] for i in range(SERVE_STEPS)]
     row = {"check": what, "batch": list(prompts.shape), "cache_rows": rows,
            "prefill_max_abs_err": p_abs, "prefill_max_rel_err": p_rel,
            "decode_max_rel_err": d_rel, "prefill_launches": counts,
            "cached_s": cached_s, **timing}
+    if routes:
+        row["forced_route_ties"] = forced
     require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(steps).all()),
             f"{model.cfg.name} {what}: finite logits")
     require(p_rel <= FORWARD_TOL, f"{model.cfg.name} {what}: prefill vs forward {p_rel}")
@@ -2239,16 +2313,20 @@ def _engine_one_slot(model) -> dict:
     TIE_TOL of its top logit (a tie, reported)."""
     import torch
     from _torch_cases import engine_fed_stream
+    from _torch_moe_cases import recorded_routes
     from repro_torch.serve import engine
 
     prompts = _engine_prompts(model.cfg, 4)
     eng = engine.ServeEngine(model, slots=1, max_len=ENGINE_ROWS)
     for p in prompts:
         eng.submit(p, max_new=ENGINE_NEW)
-    done = eng.run()
+    with recorded_routes() as routes:
+        done = eng.run()
     outs = [done[u] for u in sorted(done)]
     stream = engine_fed_stream(prompts, outs)
-    logits = _teacher_forced(model, torch.tensor([stream], device=model.device))[0]
+    forced = []
+    with _routed_like(model, routes, 1, forced):
+        logits = _teacher_forced(model, torch.tensor([stream], device=model.device))[0]
     per = ENGINE_PROMPT + ENGINE_NEW
     fed_at = [r * per + ENGINE_PROMPT + j for r in range(len(prompts))
               for j in range(ENGINE_NEW)]
@@ -2262,8 +2340,11 @@ def _engine_one_slot(model) -> dict:
             f"{model.cfg.name}: one-slot engine finished every request")
     require(all(s <= TIE_TOL for *_, s in ties),
             f"{model.cfg.name}: one-slot engine tokens off the forward's argmax: {ties}")
-    return {"check": "engine_one_slot", "requests": len(prompts), "tokens": len(fed_at),
-            "off_argmax_ties": ties}
+    row = {"check": "engine_one_slot", "requests": len(prompts), "tokens": len(fed_at),
+           "off_argmax_ties": ties}
+    if routes:
+        row["forced_route_ties"] = forced
+    return row
 
 
 def _engine_four_slots(model) -> dict:
@@ -2370,11 +2451,13 @@ def _launcher_check() -> dict:
 
 
 def phase_serve(seed: int = 0) -> dict:
-    """The serving path at full width, one model after another: cached
-    prefill and decode against the cache-less forward (and gemma2's window
-    at 4,096 + 64 tokens), the engine with one slot and with four, the
-    blockwise attention, and the launcher.  Returns each kernel's launches
-    over the cached prefills."""
+    """The serving path at full width and SERVE_LAYERS deep, one model after
+    another: cached prefill and decode against the cache-less forward (and
+    gemma2's window at 4,096 + 64 tokens), the engine with one slot and with
+    four, the blockwise attention, and the launcher.  Returns each kernel's
+    launches over the cached prefills."""
+    import dataclasses
+
     import torch
     from repro_torch import configs
     from repro_torch.models import transformer
@@ -2382,13 +2465,15 @@ def phase_serve(seed: int = 0) -> dict:
     emit({"phase": "serve", "part": "launcher", **_launcher_check(), "card": CARD})
     launches = {}
     for i, name in enumerate(SERVE_ARCHS):
-        cfg = configs.get(name)
+        full = configs.get(name)
+        cfg = dataclasses.replace(full, n_layers=min(full.n_layers, SERVE_LAYERS))
         t0 = time.perf_counter()
         g = torch.Generator(device="cuda").manual_seed(seed + 200 + i)
         model = transformer.Model(cfg).init(g)
         prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g, device="cuda")
         torch.cuda.synchronize()
-        emit({"phase": "serve", "model": name,
+        emit({"phase": "serve", "model": name, "layers": cfg.n_layers,
+              "layers_full": full.n_layers,
               "params": sum(p.numel() for p in model.parameters()),
               "init_s": time.perf_counter() - t0, "card": CARD})
         row = _check_cached(model, prompts, SERVE_ROWS, "cached_prefill_decode")
@@ -2412,6 +2497,197 @@ def phase_serve(seed: int = 0) -> dict:
         del model, prompts
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE FFN: mixtral-8x22b at full width, its depth cut to fit the card
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x22b"
+MOE_LAYERS = 4                    # of 56: 10.42 B parameters, 41.7 GB in float32
+MOE_TOL = 1e-5                    # moe.apply vs the per-expert route, relative to max |route|
+MOE_F64_TOL = 2e-5                # ... vs the per-expert route in float64
+AUX_TOL = 1e-6                    # the aux loss, relative
+MOE_WINDOW_S = 4096 + 256         # one forward in which the 4,096-token window binds
+MOE_DECODE_FACTOR = 8.0           # ample capacity, as the reference's decode test
+
+
+def _moe_layer_check(model, g) -> dict:
+    """(a) The first layer's ``moe.apply`` on 4 x 2048 normal rows against
+    the per-expert route (``_torch_moe_cases.per_expert_route``) in float32
+    and in float64: output, aux loss and kept choices; the choices dropped
+    at the config's capacity factor; ms of both."""
+    import torch
+    from _torch_moe_cases import per_expert_route
+    from repro_torch.models import moe
+
+    cfg, p = model.cfg, model.layers[0].ffn
+    m = cfg.moe
+    x = torch.randn((EDGE_B, EDGE_S, cfg.d_model), generator=g, device="cuda")
+    T, C = EDGE_B * EDGE_S, moe.capacity(EDGE_B * EDGE_S, cfg)
+    out, aux = moe.apply(p, cfg, x)
+    ids = moe.route(p["router"], x.reshape(T, -1), m.top_k)[1].reshape(-1)
+    _, keep = moe.slots(ids, m.n_experts, C)
+    want, raux, kept = per_expert_route(p, cfg, x)
+    exact, _, _ = per_expert_route(p, cfg, x, torch.float64)
+    a_abs, a_rel = _max_rel(out, want)
+    f_abs, f_rel = _max_rel(out, exact)
+    aux_rel = abs(float(aux) - raux) / raux
+    flops = 3 * 2 * m.n_experts * C * cfg.d_model * m.d_expert
+    ms = time_ms(lambda: moe.apply(p, cfg, x), reps=5)
+    row = {"check": "moe_layer", "batch": [EDGE_B, EDGE_S], "tokens": T, "capacity": C,
+           "capacity_factor": m.capacity_factor,
+           "choices_per_expert": torch.bincount(ids, minlength=m.n_experts).tolist(),
+           "dropped_choices": int((~keep).sum()),
+           "max_abs_err": a_abs, "max_rel_err": a_rel,
+           "f64_max_abs_err": f_abs, "f64_max_rel_err": f_rel,
+           "aux": float(aux), "aux_rel_err": aux_rel, "ms": ms,
+           "expert_tflop": flops / 1e12, "expert_tflops_per_s": flops / ms / 1e9,
+           "route_ms": time_ms(lambda: per_expert_route(p, cfg, x), reps=3)}
+    require(bool(torch.isfinite(out).all()) and tuple(out.shape) == tuple(x.shape),
+            "moe layer: finite output of the input's shape")
+    require(torch.equal(keep, kept), "moe layer: kept choices differ from the route's")
+    require(a_rel <= MOE_TOL and f_rel <= MOE_F64_TOL and aux_rel <= AUX_TOL,
+            f"moe layer: rel err {a_rel}, float64 {f_rel}, aux {aux_rel}")
+    return row
+
+
+def _moe_drop_check(model, g) -> dict:
+    """(b) The reference test's 2 x 32 identical tokens at full width: both
+    experts of the pair get all 64 choices and keep exactly their first C
+    (24) in the flattened order; the output that of the per-expert route."""
+    import torch
+    from _torch_moe_cases import first_choices, per_expert_route
+    from repro_torch.models import moe
+
+    cfg, p = model.cfg, model.layers[0].ffn
+    m = cfg.moe
+    x = torch.randn((1, 1, cfg.d_model), generator=g, device="cuda").expand(
+        2, 32, cfg.d_model).contiguous()
+    T, C = 64, moe.capacity(64, cfg)
+    out, aux = moe.apply(p, cfg, x)
+    ids = moe.route(p["router"], x.reshape(T, -1), m.top_k)[1].reshape(-1)
+    _, keep = moe.slots(ids, m.n_experts, C)
+    counts = torch.bincount(ids, minlength=m.n_experts).tolist()
+    want, raux, kept = per_expert_route(p, cfg, x)
+    a_abs, a_rel = _max_rel(out, want)
+    row = {"check": "moe_drops", "batch": [2, 32], "capacity": C,
+           "choices_per_expert": counts, "kept": int(keep.sum()),
+           "max_abs_err": a_abs, "max_rel_err": a_rel, "aux": float(aux)}
+    require(C == 24 and sorted(counts)[-2:] == [T, T],
+            f"moe drops: capacity {C}, choices per expert {counts}")
+    require(torch.equal(keep, first_choices(ids, m.n_experts, C))
+            and torch.equal(keep, kept) and int(keep.sum()) == 2 * C,
+            "moe drops: the kept set is not each expert's first C choices")
+    require(bool(torch.isfinite(out).all()) and a_rel <= MOE_TOL,
+            f"moe drops: rel err {a_rel} against the per-expert route")
+    return row
+
+
+def _moe_forward_vs_plain(model, tokens, what) -> tuple:
+    """(c), (d) The cache-less forward through the kernels, its launches
+    counted, against the same forward with attention through the plain
+    versions, which takes the first run's expert choices where its own
+    differ by a tie: (row, ms per forward, launch counts)."""
+    import torch
+    from _torch_moe_cases import forced_routes, recorded_routes
+    from repro_torch.kernels import ops
+
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_routes() as routes:
+        logits = model.apply(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    with through_plain_versions(), forced_routes(routes, ROUTE_TIE) as forced:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = model.apply(batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    p_abs, p_rel = _max_rel_rows(logits, plain)
+    row = {"check": what, "batch": list(tokens.shape), "logits_shape": list(logits.shape),
+           "launches": counts, "ms_per_forward": ms,
+           "tokens_per_s": tokens.numel() / (ms / 1e3), "plain_ms_per_forward": plain_ms,
+           "plain_max_abs_err": p_abs, "plain_max_rel_err": p_rel,
+           "forced_route_ties": forced}
+    require(bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (*tokens.shape, model.cfg.vocab),
+            f"{MOE_ARCH} {what}: finite logits of the expected shape")
+    require(p_rel <= FORWARD_TOL, f"{MOE_ARCH} {what}: kernels vs plain forward {p_rel}")
+    require(counts["flash_attention"] == model.cfg.n_layers
+            and all(v == 0 for k, v in counts.items() if k != "flash_attention"),
+            f"{MOE_ARCH} {what}: flash_attention once a layer, nothing else: {counts}")
+    del logits, plain
+    return row, ms, counts
+
+
+def phase_moe(seed: int = 0) -> dict:
+    """mixtral-8x22b at full width, MOE_LAYERS of its 56 layers, random
+    float32 weights from a seeded generator on the card: (a) an MoE layer
+    alone against the per-expert route, (b) its drops, (c) the forward of
+    4 x 2048 tokens and (d) of 1 x 4,352 (the window binds) against the
+    plain versions, (e) at capacity factor 8.0 the cached prefill and
+    decode against the forward, and the engine with one slot and with four.
+    Returns the kernels' launches over the forward of (c)."""
+    import dataclasses
+
+    import torch
+    from _torch_moe_cases import capacity_factor
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    full = configs.get(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 300)
+    model = transformer.Model(cfg).init(g)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = n_params * 4
+    emit({"phase": "moe", "model": MOE_ARCH, "layers": MOE_LAYERS,
+          "layers_full": full.n_layers, "params": n_params, "weight_gb": weight_bytes / 1e9,
+          "init_s": time.perf_counter() - t0, "card": CARD})
+    emit({"phase": "moe", "part": "a", **_moe_layer_check(model, g), "card": CARD})
+    emit({"phase": "moe", "part": "b", **_moe_drop_check(model, g), "card": CARD})
+    toks = torch.randint(0, cfg.vocab, (EDGE_B, EDGE_S), generator=g, device="cuda")
+    row, ms, launches = _moe_forward_vs_plain(model, toks, "forward")
+    emit({"phase": "moe", "part": "c", **row, "card": CARD})
+    _forward_profile(MOE_ARCH, model, {"tokens": toks}, ms, phase="moe_profile")
+    long = torch.randint(0, cfg.vocab, (1, MOE_WINDOW_S), generator=g, device="cuda")
+    row, _, _ = _moe_forward_vs_plain(model, long, "window")
+    emit({"phase": "moe", "part": "d", "window": cfg.window, **row, "card": CARD})
+    del toks, long
+    # the phase's peak: the engine check below resets the counter
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    # (e) a decode step routes B tokens into C >= 8 rows an expert, a forward
+    # over the whole sequence T into other C: at the config's factor the two
+    # may drop differently, so (e) runs at the reference decode test's 8.0
+    bound_ms = weight_bytes / PEAK_BYTES * 1e3
+    with capacity_factor(model, MOE_DECODE_FACTOR):
+        prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g,
+                                device="cuda")
+        row = _check_cached(model, prompts, SERVE_ROWS, "cached_prefill_decode")
+        require(all(v == 0 for v in row["prefill_launches"].values()),
+                f"{MOE_ARCH}: cached prefill launches {row['prefill_launches']}")
+        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
+              **row, "decode_bound_ms": bound_ms, "card": CARD})
+        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
+              **_engine_one_slot(model), "card": CARD})
+        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
+              **_engine_four_slots(model), "decode_bound_ms": bound_ms, "card": CARD})
+    emit({"phase": "moe", "model": MOE_ARCH,
+          "peak_gb": max(peak, torch.cuda.max_memory_allocated()) / 2**30, "card": CARD})
+    del model, prompts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     return launches
 
 
@@ -3889,6 +4165,7 @@ def main(argv=None) -> int:
     chains = phased("edge_gp", phase_edge_gp, ref_edge)
     model_launches = phased("edge_forwards", phase_edge_forwards, chains)
     serve_launches = phased("serve", phase_serve)
+    moe_launches = phased("moe", phase_moe)
     for name, rows in phased("solve_kernels", phase_solve_kernels).items():
         kernels[name] = rows + kernels.get(name, [])
     oracle_launches = phased("oracle", phase_oracle)
@@ -3929,6 +4206,9 @@ def main(argv=None) -> int:
     launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
     launches.update(model_launches)
     launches.update(oracle_launches)
+    # the model kernels' main paths: the edge forwards and mixtral's forward
+    for name, n in moe_launches.items():
+        launches[name] += n
 
     # the main row of each kernel (its main path's shape) among its cases
     meta = {
@@ -3965,6 +4245,7 @@ def main(argv=None) -> int:
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"],
                      "serve_prefill_launches": serve_launches[name],
+                     "moe_forward_launches": moe_launches[name],
                      "bound_tc_ms": main_row.get("bound_tc_ms"),
                      "prev_ms": main_row.get("prev_ms"),
                      "prev_launches_per_call": main_row.get("prev_launches_per_call"),

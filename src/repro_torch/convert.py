@@ -80,7 +80,11 @@ def model_params_from_numpy(cfg, tree: dict) -> dict:
 
     The reference stacks the layers of each period position along a
     leading axis (``body[p][...][c]`` is layer ``n_prefix + c * period +
-    p``); this unstacks them into one entry per layer.
+    p``); this unstacks them into one entry per layer.  An MoE layer's
+    ``MoEParams`` come as its dict like any other: ``ffn.router`` (d, E),
+    the experts ``ffn.w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d)
+    unstacked from (n_periods, E, ...), and the ``shared_*`` tensors kept
+    zero-width where the config has no shared expert.
     """
     n_prefix, period = _layer_period(cfg)
     n_periods = (cfg.n_layers - n_prefix) // period

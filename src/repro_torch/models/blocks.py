@@ -2,13 +2,13 @@
 
 Port of ``repro.models.blocks`` for a GQA attention (with Gemma-2's
 soft-capping and local/global windows) or Mamba-2 SSD mixer, and a dense
-SwiGLU/GeGLU FFN or none (pure-SSM archs), with Gemma-2's post-norms
-after the mixer and the FFN.  One :class:`Block` module per layer; its
-parameters carry the reference's names and shapes (``ln1``, ``mixer.wq``
-..., ``ln1_post``, ``ln2``, ``ffn.w_gate`` ..., ``ln2_post``).  A block
-runs with or without its layer's cache (:func:`init_block_cache`).  MoE,
-MLA, the Jamba hybrid and the audio/vision frontends are not ported
-(:func:`check_supported`).
+SwiGLU/GeGLU FFN, an MoE FFN (``models.moe``) or none (pure-SSM archs),
+with Gemma-2's post-norms after the mixer and the FFN.  One :class:`Block`
+module per layer; its parameters carry the reference's names and shapes
+(``ln1``, ``mixer.wq`` ..., ``ln1_post``, ``ln2``, ``ffn.w_gate`` or
+``ffn.router`` ..., ``ln2_post``).  A block runs with or without its
+layer's cache (:func:`init_block_cache`).  MLA, the Jamba hybrid and the
+audio/vision frontends are not ported (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.network import Device
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 
 # Where the parts of the model substrate that are not ported yet are queued.
 TODO = "ROADMAP Queue 1, Transformer substrate, the rest"
@@ -47,10 +47,8 @@ def layer_meta(cfg: ModelConfig, idx: int) -> LayerMeta:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE FFN layers (item 6a)")
     if cfg.hybrid_attn_period:
-        missing.append("the Jamba attention/SSM hybrid (item 6a)")
+        missing.append("the Jamba attention/SSM hybrid (item 6d)")
     if cfg.attn_kind == "mla":
         missing.append("MLA attention (item 6b)")
     if cfg.frontend is not None or cfg.encoder_only:
@@ -77,9 +75,9 @@ def _norm(d: int, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: ``ln1``, ``mixer`` and, where the config has one, ``ln2``
-    and ``ffn``; with ``post_norm``, ``ln1_post`` (and ``ln2_post`` with an
-    FFN).  Parameters allocated (uninitialised) on ``device``.  For configs
+    """One layer: ``ln1``, ``mixer`` and, where the layer has one, ``ln2``
+    and ``ffn`` (dense, or MoE where ``meta.is_moe``); with ``post_norm``,
+    ``ln1_post`` (and ``ln2_post`` with an FFN).  Parameters allocated (uninitialised) on ``device``.  For configs
     that pass :func:`check_supported` (``Model`` checks)."""
 
     def __init__(self, cfg: ModelConfig, meta: LayerMeta, device):
@@ -91,10 +89,11 @@ class Block(nn.Module):
         self.mixer = _params(mixer.param_shapes(cfg), device)
         if cfg.post_norm:
             self.ln1_post = _norm(d, device)
-        self.has_ffn = cfg.d_ff > 0 and cfg.arch_type != "ssm"
+        self.has_ffn = meta.is_moe or (cfg.d_ff > 0 and cfg.arch_type != "ssm")
         if self.has_ffn:
             self.ln2 = _norm(d, device)
-            self.ffn = _params(_ffn_shapes(cfg), device)
+            shapes = moe.param_shapes(cfg) if meta.is_moe else _ffn_shapes(cfg)
+            self.ffn = _params(shapes, device)
             if cfg.post_norm:
                 self.ln2_post = _norm(d, device)
 
@@ -115,9 +114,12 @@ def init_block(block: Block, gen: torch.Generator) -> None:
             block.ln1_post.zero_()
         if block.has_ffn:
             block.ln2.zero_()
-            layers.dense_init_(block.ffn["w_gate"], gen)
-            layers.dense_init_(block.ffn["w_up"], gen)
-            layers.dense_init_(block.ffn["w_down"], gen)
+            if block.meta.is_moe:
+                moe.init(block.ffn, gen)
+            else:
+                layers.dense_init_(block.ffn["w_gate"], gen)
+                layers.dense_init_(block.ffn["w_up"], gen)
+                layers.dense_init_(block.ffn["w_down"], gen)
             if block.cfg.post_norm:
                 block.ln2_post.zero_()
 
@@ -134,10 +136,12 @@ def init_block_cache(cfg: ModelConfig, meta: LayerMeta, batch: int, max_len: int
 def apply_block(block: Block, x: torch.Tensor, *, positions: torch.Tensor, cache=None,
                 cache_index: int = 0, impl: str = "naive",
                 view: Optional[attention.CacheView] = None):
-    """x (B, S, d) -> (x + mixer(norm(x)) [+ ffn(norm(.))], new_cache); with
-    ``post_norm`` the mixer's and FFN's outputs are normed before their
-    residual adds.  ``new_cache`` is None without a ``cache``.  ``impl``
-    and ``view`` go to :func:`attention.apply`."""
+    """x (B, S, d) -> (x + mixer(norm(x)) [+ ffn(norm(.))], new_cache, aux);
+    with ``post_norm`` the mixer's and FFN's outputs are normed before their
+    residual adds.  ``new_cache`` is None without a ``cache``.  ``aux`` is
+    an MoE layer's load-balance loss (a float32 scalar), None for a layer
+    without one (the reference's zero).  ``impl`` and ``view`` go to
+    :func:`attention.apply`."""
     cfg, meta = block.cfg, block.meta
     h = layers.rms_norm(x, block.ln1, cfg.norm_eps)
     if meta.kind == "attn":
@@ -149,11 +153,15 @@ def apply_block(block: Block, x: torch.Tensor, *, positions: torch.Tensor, cache
     if cfg.post_norm:
         mix = layers.rms_norm(mix, block.ln1_post, cfg.norm_eps)
     x = x + mix
+    aux = None
     if block.has_ffn:
         h = layers.rms_norm(x, block.ln2, cfg.norm_eps)
         f = block.ffn
-        f = layers.swiglu(h, f["w_gate"], f["w_up"], f["w_down"], cfg.act)
+        if meta.is_moe:
+            f, aux = moe.apply(f, cfg, h)
+        else:
+            f = layers.swiglu(h, f["w_gate"], f["w_up"], f["w_down"], cfg.act)
         if cfg.post_norm:
             f = layers.rms_norm(f, block.ln2_post, cfg.norm_eps)
         x = x + f
-    return x, new_cache
+    return x, new_cache, aux

@@ -8,6 +8,10 @@ one cache entry per layer; the reference's scan over layer periods is
 gone (``convert.model_params_from_numpy`` and ``convert.cache_from_numpy``
 unstack its period axis).
 
+``Model.apply(..., return_aux=True)`` also returns the summed load-balance
+aux loss of the MoE layers, as the reference's ``apply`` does (zero for a
+model without MoE layers).
+
 ``Model`` allocates its parameters on the device (CUDA unless the caller
 asks for the CPU) and :meth:`Model.init` fills them from a seeded
 ``torch.Generator`` on that device with the reference's distributions.
@@ -85,7 +89,7 @@ class Model(nn.Module):
         if positions is None:
             positions = self.positions(x.shape[0], x.shape[1])
         for block in self.layers[start:stop]:
-            x, _ = block(x, positions, impl=self.attn_impl)
+            x, _, _ = block(x, positions, impl=self.attn_impl)
         return x
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,14 +107,17 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def apply(self, batch: dict, cache: list | None = None,
-              cache_index: int | None = None):
+              cache_index: int | None = None, *, return_aux: bool = False):
         """{"tokens": (B, S)} -> logits (B, S, vocab), float32.
 
         With a ``cache`` (:meth:`init_cache`), the S tokens sit at positions
         ``cache_index .. cache_index + S - 1`` (0 if None) and attend to the
         cache's first ``cache_index + S`` rows; returns ``(logits,
         new_cache)``.  Attention caches are written in place; SSM layers'
-        entries are new tensors, so use the returned list.
+        entries are new tensors, so use the returned list.  With
+        ``return_aux`` the summed aux loss of the MoE layers (a float32
+        scalar, summed in layer order from zero) comes last: ``(logits,
+        aux)`` or ``(logits, new_cache, aux)``.
         """
         x = self.embed(batch)
         B, S = x.shape[:2]
@@ -118,21 +125,26 @@ class Model(nn.Module):
         positions = self.positions(B, S)
         if ci:
             positions = positions + ci
-        if cache is None:
-            return self.head(self.apply_layers(x, positions=positions))
-        attn = [i for i, b in enumerate(self.layers) if b.meta.kind == "attn"]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if return_aux else None
         view = None
-        if attn:
+        attn = [i for i, b in enumerate(self.layers) if b.meta.kind == "attn"]
+        if cache is not None and attn:
             # the cache rows' positions, valid prefixes and masks, once a call
             view = attention.cache_view(
                 self.cfg, positions, cache[attn[0]][0].shape[1], ci,
                 [self.layers[i].meta.window for i in attn], self.attn_impl)
         new_cache = []
-        for block, c in zip(self.layers, cache, strict=True):
-            x, c = block(x, positions, cache=c, cache_index=ci, impl=self.attn_impl,
-                         view=view)
+        entries = [None] * len(self.layers) if cache is None else cache
+        for block, c in zip(self.layers, entries, strict=True):
+            x, c, a = block(x, positions, cache=c, cache_index=ci, impl=self.attn_impl,
+                            view=view)
             new_cache.append(c)
-        return self.head(x), new_cache
+            if return_aux and a is not None:
+                aux = aux + a
+        out = (self.head(x),) if cache is None else (self.head(x), new_cache)
+        if return_aux:
+            out += (aux,)
+        return out[0] if len(out) == 1 else out
 
 
 def make_model(cfg_or_name, *, reduced: bool = False, attn_impl: str = "naive",

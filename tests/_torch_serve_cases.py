@@ -10,8 +10,10 @@ import torch
 
 from repro import configs as jcfg
 from repro.models.transformer import Model as JModel
+from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.models import transformer as ttr
+from repro_torch.serve import engine
 
 
 def rel(got, want) -> float:
@@ -52,3 +54,51 @@ def tokens(vocab: int, shape, seed: int) -> np.ndarray:
 
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def recorded_decode(eng, to_numpy):
+    """Wrap ``eng._decode`` (either engine's) to record each call's (tokens
+    in, cache index, tokens out, last logits) as numpy; returns the list."""
+    calls, step = [], eng._decode
+
+    def decode(*args):
+        nxt, cache, last = step(*args)
+        toks, index = args[-2], args[-1]
+        calls.append(tuple(to_numpy(x) for x in (toks, index, nxt, last)))
+        return nxt, cache, last
+
+    eng._decode = decode
+    return calls
+
+
+def serve_both(jm, params, tm, prompts, slots: int, max_new: int, max_len: int = 128):
+    """The reference's engine and the port's over the same requests, every
+    decode call recorded: (reference calls, port calls, reference outputs,
+    port outputs)."""
+    ref = JServeEngine(jm, params, slots=slots, max_len=max_len)
+    port = engine.ServeEngine(tm, slots=slots, max_len=max_len)
+    rcalls = recorded_decode(ref, np.asarray)
+    pcalls = recorded_decode(port, lambda x: x.numpy() if torch.is_tensor(x) else np.asarray(x))
+    want, got = [], []
+    for eng, out in ((ref, want), (port, got)):
+        for p in prompts:
+            eng.submit(p, max_new=max_new)
+        out.append(eng.run())
+    return rcalls, pcalls, want[0], got[0]
+
+
+def calls_agree(rcalls, pcalls, tie: float) -> bool:
+    """Each decode call's input tokens and cache index equal, its logits
+    within 1e-4 of the reference's largest |logit|, its tokens equal; a
+    token may differ only where the reference's top-2 gap is within ``tie``
+    of its largest |logit|, and then the runs part: False."""
+    for i, ((rt, ri, rn, rl), (pt, pi, pn, pl)) in enumerate(zip(rcalls, pcalls)):
+        assert np.array_equal(pt, rt) and int(pi) == int(ri), i
+        assert rel(pl, rl) <= 1e-4, i
+        if not np.array_equal(pn[:, 0], rn[:, 0]):
+            top2 = np.sort(rl, axis=-1)[:, -2:]
+            gap = (top2[:, 1] - top2[:, 0]) / np.abs(rl).max()
+            bad = pn[:, 0] != rn[:, 0]
+            assert np.all(gap[bad] <= tie), (i, gap[bad])
+            return False
+    return True

@@ -730,16 +730,17 @@ def test_model_wrappers_reject_what_the_kernels_do_not_take(cuda):
         sc.ssd_chunk_fwd(x, d, d, b, b)
 
 
-def _plain_forward(monkeypatch, model, batch):
-    """``model``'s forward with the model kernels' wrappers swapped for their
-    plain versions (``ops`` looks them up at each call)."""
+def _plain_forward(monkeypatch, model, batch, **kw):
+    """``model``'s forward (``Model.apply``'s keywords ``kw``) with the model
+    kernels' wrappers swapped for their plain versions (``ops`` looks them
+    up at each call)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
 
     with monkeypatch.context() as m:
         m.setattr(fa, "flash_attention_fwd", fa.flash_attention_plain)
         m.setattr(sc, "ssd_chunk_fwd", sc.ssd_chunk_plain)
-        return model.apply(batch)
+        return model.apply(batch, **kw)
 
 
 def _forward_on_card(monkeypatch, cuda, name, S):
@@ -815,6 +816,116 @@ def test_cached_ssm_prefill_on_card(cuda, monkeypatch, S):
         assert _max_rel(got, want) <= 1e-4
     for got, want in zip(cache, plain_cache):
         assert _max_rel(got[1], want[1]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (mixtral-8x22b): a layer and its drops at full width, the
+# forward at reduced size, the flash kernel at mixtral's heads and window
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S", [(4, 2048), (1, 4352)])
+def test_flash_attention_at_mixtral_heads(cuda, B, S):
+    """48 query heads over 8 KV heads (a GQA group of 6), hd 128, the
+    4,096-token window: not binding at S = 2048, binding at 4,352."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(S + B)
+    q = torch.randn((B, 48, S, 128), generator=g, device=cuda)
+    k = torch.randn((B, 8, S, 128), generator=g, device=cuda)
+    v = torch.randn((B, 8, S, 128), generator=g, device=cuda)
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=4096, seq_len=S)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=4096, seq_len=S)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.fixture(scope="module")
+def mixtral_layer():
+    """mixtral-8x22b's MoE layer at full width (d 6144, 8 experts of f
+    16384; 10 GB of float32 weights) from a seeded generator on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get("mixtral-8x22b")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    params = {k: torch.empty(s, device="cuda") for k, s in moe.param_shapes(cfg).items()}
+    moe.init(params, g)
+    yield cfg, params, g
+    del params
+    torch.cuda.empty_cache()
+
+
+def test_moe_layer_matches_per_expert_route_on_card(mixtral_layer):
+    """``moe.apply`` on 2 x 1024 tokens against the per-expert route: within
+    1e-5 of it in float32 and 2e-5 of it in float64 (relative to the largest
+    |value|), the aux loss within 1e-6, the same kept choices."""
+    from _torch_moe_cases import per_expert_route
+    from repro_torch.models import moe
+
+    cfg, p, g = mixtral_layer
+    x = torch.randn((2, 1024, cfg.d_model), generator=g, device="cuda")
+    out, aux = moe.apply(p, cfg, x)
+    T, m = 2048, cfg.moe
+    ids = moe.route(p["router"], x.reshape(T, -1), m.top_k)[1].reshape(-1)
+    _, keep = moe.slots(ids, m.n_experts, moe.capacity(T, cfg))
+    want, raux, kept = per_expert_route(p, cfg, x)
+    exact, _, _ = per_expert_route(p, cfg, x, torch.float64)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and torch.equal(keep, kept)
+    assert _max_rel(out, want) <= 1e-5 and _max_rel(out, exact) <= 2e-5
+    assert abs(float(aux) - raux) <= 1e-6 * raux
+
+
+def test_moe_drops_first_choices_on_card(mixtral_layer):
+    """The reference test's 2 x 32 identical tokens: C = 24, both experts of
+    the pair get all 64 choices and keep their first 24; the output that of
+    the per-expert route."""
+    from _torch_moe_cases import first_choices, per_expert_route
+    from repro_torch.models import moe
+
+    cfg, p, g = mixtral_layer
+    m = cfg.moe
+    x = torch.randn((1, 1, cfg.d_model), generator=g, device="cuda").expand(
+        2, 32, cfg.d_model).contiguous()
+    C = moe.capacity(64, cfg)
+    out, _ = moe.apply(p, cfg, x)
+    ids = moe.route(p["router"], x.reshape(64, -1), m.top_k)[1].reshape(-1)
+    _, keep = moe.slots(ids, m.n_experts, C)
+    want, _, kept = per_expert_route(p, cfg, x)
+    torch.cuda.synchronize()
+    assert C == 24
+    assert sorted(torch.bincount(ids, minlength=m.n_experts).tolist())[-2:] == [64, 64]
+    assert torch.equal(keep, first_choices(ids, m.n_experts, C)) and torch.equal(keep, kept)
+    assert int(keep.sum()) == 2 * C
+    assert bool(torch.isfinite(out).all()) and _max_rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("S", [256, 320])
+def test_reduced_mixtral_forward_on_card(cuda, monkeypatch, S):
+    """Reduced mixtral (2 layers, window 64: binding at both lengths) on 2 x S
+    tokens: ``flash_attention`` once a layer, and the forward within 1e-4
+    of the one through the plain versions, which takes the first run's
+    expert choices where its own differ by a tie (1e-4 in probability)."""
+    from _torch_moe_cases import forced_routes, recorded_routes
+    from repro_torch.models import transformer
+
+    model = transformer.make_model("mixtral-8x22b", reduced=True).init(7)
+    toks = torch.randint(0, model.cfg.vocab, (2, S),
+                         generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    ops.reset_launch_counts()
+    with recorded_routes() as routes:
+        logits, aux = model.apply({"tokens": toks}, return_aux=True)
+    assert ops.launch_counts()["flash_attention"] == model.cfg.n_layers
+    with forced_routes(routes, 1e-4):
+        plain, plain_aux = _plain_forward(monkeypatch, model, {"tokens": toks},
+                                          return_aux=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert _max_rel(logits, plain) <= 1e-4
+    assert abs(float(aux) - float(plain_aux)) <= 1e-6 * float(plain_aux)
 
 
 # ---------------------------------------------------------------------------

@@ -287,11 +287,14 @@ def test_model_init_distributions():
     assert torch.equal(again.layers[1].mixer["w_out"], tm.layers[1].mixer["w_out"])
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "mixtral-8x22b", "jamba-v0.1-52b",
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "jamba-v0.1-52b",
                                   "hubert-xlarge", "llava-next-34b"])
 def test_unported_features_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, Transformer substrate, the rest"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, Transformer substrate, the rest") as err:
         ttr.make_model(name, reduced=True, device="cpu")
+    if name.startswith("jamba"):
+        assert "hybrid (item 6d)" in str(err.value) and "MoE" not in str(err.value)
 
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "phi4-mini-3.8b"])

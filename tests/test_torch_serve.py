@@ -12,7 +12,6 @@ gap is within 1e-4 of its largest |logit| (a tie), after which the runs
 part and are compared no further.
 """
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,29 +20,13 @@ pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch import serve  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from _torch_cases import engine_fed_stream  # noqa: E402
-from _torch_serve_cases import models, rel, tokens  # noqa: E402
+from _torch_serve_cases import calls_agree, models, rel, serve_both, tokens  # noqa: E402
 
 TIE = 1e-4
-
-
-def _recorded(eng, to_numpy):
-    """Wrap ``eng._decode`` to record each call's (tokens in, cache index,
-    tokens out, last logits) as numpy."""
-    calls, step = [], eng._decode
-
-    def decode(*args):
-        nxt, cache, last = step(*args)
-        toks, index = args[-2], args[-1]
-        calls.append(tuple(to_numpy(x) for x in (toks, index, nxt, last)))
-        return nxt, cache, last
-
-    eng._decode = decode
-    return calls
 
 
 def _serve(eng, prompts, max_new):
@@ -56,21 +39,10 @@ def _serve(eng, prompts, max_new):
 def test_engine_tokens_match_reference(name):
     jm, params, tm = models(name)
     prompts = [tokens(tm.cfg.vocab, 12, seed=20 + i) for i in range(3)]
-    ref = JServeEngine(jm, params, slots=2, max_len=128)
-    port = engine.ServeEngine(tm, slots=2, max_len=128)
-    rcalls = _recorded(ref, lambda x: np.asarray(x))
-    pcalls = _recorded(port, lambda x: x.numpy() if torch.is_tensor(x) else np.asarray(x))
-    want, got = _serve(ref, prompts, 8), _serve(port, prompts, 8)
+    rcalls, pcalls, want, got = serve_both(jm, params, tm, prompts, slots=2, max_new=8)
     assert len(pcalls) == len(rcalls) == 3 * 12 + 2 * 8
-    for i, ((rt, ri, rn, rl), (pt, pi, pn, pl)) in enumerate(zip(rcalls, pcalls)):
-        assert np.array_equal(pt, rt) and int(pi) == int(ri), i
-        assert rel(pl, rl) <= 1e-4, i
-        if not np.array_equal(pn[:, 0], rn[:, 0]):
-            top2 = np.sort(rl, axis=-1)[:, -2:]
-            gap = (top2[:, 1] - top2[:, 0]) / np.abs(rl).max()
-            bad = pn[:, 0] != rn[:, 0]
-            assert np.all(gap[bad] <= TIE), (i, gap[bad])
-            return                                    # parted at a tie
+    if not calls_agree(rcalls, pcalls, TIE):
+        return                                        # parted at a tie
     assert sorted(got) == sorted(want) == [1, 2, 3]
     assert all(got[u] == want[u] and len(got[u]) == 8 for u in want)
 
