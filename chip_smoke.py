@@ -132,19 +132,22 @@ phase:
      S=2000 (padded to 2048), at hd=64 (32 heads, 4 KV heads), and at
      mixtral-8x22b's heads (H=48, KV=8: a GQA group of 6) with its
      4,096-token window at S=2048 (B=4; not binding) and S=4,352 (B=1;
-     binding);
+     binding), and at jamba-v0.1-52b's (H=32, KV=8: a group of 4; causal,
+     no window; B=4, S=2048);
      ``ssd_chunk`` at mamba2-780m's (B=4, 16 chunks of 128, H=48, P=64,
      N=128, one B/C group), at one chunk, at the serve phase's cached
-     prefill (B=4, 2 chunks), and through ``ops.ssd_chunk`` at a 32-token
-     prefill it pads to 128 rows.  ``library_ms`` of the
+     prefill (B=4, 2 chunks), at jamba-v0.1-52b's (B=4, 16 chunks, H=128,
+     P=64, N=16) and at its cached prefill (B=4, 2 chunks), and through ``ops.ssd_chunk`` at a 32-token prefill it
+     pads to 128 rows.  ``library_ms`` of the
      attention is ``scaled_dot_product_attention`` in float32 (timed only).
      Both kernels form their products on the tensor cores in three-term
      TF32 (float32-accurate; no PyTorch product uses TF32): each row also
      gives the kernel's and the plain version's largest error against the
      plain version evaluated in float64 (``max_rel_err_f64``,
      ``plain_max_rel_err_f64``), and ``bound_tc_ms``, the bound at the
-     three-term rate (495 / 3 TFLOP/s; for ``ssd_chunk`` with C B^T once
-     per chunk and group) beside ``bound_ms`` at the CUDA cores' 67.  With
+     three-term rate (495 / 3 TFLOP/s) beside ``bound_ms`` at the CUDA
+     cores' 67 (for ``ssd_chunk`` both count C B^T once per chunk and
+     group, the work the function needs).  With
      ``--prev``, the earlier kernels (commit 14c1039, float32 CUDA cores)
      on the same inputs: their float64 error (``prev_max_rel_err_f64``)
      and device ms timed in turns (``prev_ms``, ``abba_ms``, ``speedup``);
@@ -221,6 +224,23 @@ phase:
      of 4 x 256 tokens and 8 decode steps against the forward, the decode
      step's ms, launches, device ms and idle share beside its 41.7 GB
      weight-read bound, and the engine with one slot and with four.
+  12d. hybrid — jamba-v0.1-52b at full width (d 4096, 32/8 heads, hd 128,
+     no window; Mamba-2 with d_state 16, head_dim 64, 128 heads; 16
+     experts of f 14,336, top 2, on every second layer), one period of 8
+     of its 32 layers (attention on layer 3, MoE on 0, 2, 4, 6; about 53 GB
+     of float32 weights from a seeded generator on the card): (a) after
+     one untimed forward (its time printed as ``cold_ms_per_forward``), the
+     forward of 4 x 2048 tokens (launches counted: ``ssd_chunk`` once an
+     SSM layer, 7, ``flash_attention`` once, nothing else) within 1e-3 of
+     the same forward through the plain versions, route ties forced and
+     printed as in 12c (c); ms per forward, tokens/s, ``hybrid_profile``
+     (device ms by part, idle share) and the peak GiB; (b) at capacity
+     factor 8.0 the cached prefill of 4 x 256 tokens (``ssd_chunk`` once
+     an SSM layer, no flash launch) and 8 decode steps against the
+     forward, the prefill again through the plain versions (logits and
+     the SSM layers' conv and SSM states), the decode step's ms, launches,
+     device ms and idle share beside its weight-read bound, and the
+     engine with one slot and with four.
 
   13. kernel (lu_solve, propagate_step) — the last two kernels against their
      plain versions, within 1e-5 relative: ``lu_solve`` on the sw-queue
@@ -372,8 +392,9 @@ three, the metro-sw one for the sparse route's two, one full-width
 forward for the model kernels, and the oracle phase for ``lu_solve`` and
 ``propagate_step``, which lie on no solver path; ``serve_prefill_launches``
 over the serve phase's three cached prefills; ``moe_forward_launches``
-over the moe phase's forward of 4 x 2048 tokens, which ``launches`` adds
-to the edge forward's for ``flash_attention``; ``prev_ms`` and
+over the moe phase's forward of 4 x 2048 tokens and
+``hybrid_forward_launches`` over the hybrid phase's, which ``launches``
+adds to the edge forwards' for ``flash_attention`` and ``ssd_chunk``; ``prev_ms`` and
 ``prev_commit`` for the seven redesigned kernels, the commit their earlier
 versions come from (for ``tagged`` and ``tagged_nbr`` the composition they
 replace, with ``prev_launches_per_call``); ``prev_ms`` null for the others and without
@@ -1810,11 +1831,11 @@ def _ssd_row(label, B, nc, H, P, N, G=1, seed=0, prev=None):
         errs["prev_max_rel_err_f64"] = f64(old())
     del ye, se
     tri = Q * (Q + 1) // 2
-    flops = B * nc * H * (tri * (2 * N + 2 * P + 3) + 2 * Q * N * P + 3 * Q)
-    # the least work: C B^T once per chunk and group
-    least = B * nc * (G * tri * 2 * N + H * (tri * (2 * P + 3) + 2 * Q * N * P + 3 * Q))
+    # the work the function needs: C B^T once per chunk and group
+    flops = B * nc * (G * tri * 2 * N + H * (tri * (2 * P + 3) + 2 * Q * N * P + 3 * Q))
     nbytes = (xh.numel() + 2 * dt.numel() + 2 * Bc.numel() + y.numel() + st.numel()) * 4
     b_ms, b_by = bound(nbytes, flops)
+    tc_ms, tc_by = bound(nbytes, flops, PEAK_TF32X3)
 
     def new():
         return sc.ssd_chunk_fwd(*args)
@@ -1824,8 +1845,7 @@ def _ssd_row(label, B, nc, H, P, N, G=1, seed=0, prev=None):
            **timed(new, "ssd_chunk_kernel"),
            "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args)),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "bound_tc_ms": bound(nbytes, least, PEAK_TF32X3)[0],
-           "bound_tc_by": bound(nbytes, least, PEAK_TF32X3)[1],
+           "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
            **_versus_prev(old, new, None, "ssd_chunk_kernel", f"ssd_chunk {label}",
                           PREV_COMMIT_MODELS, same_bits=False)}
     emit({"phase": "model_kernels", "name": "ssd_chunk", "case": label, **row})
@@ -1874,12 +1894,18 @@ def phase_model_kernels(prev=None):
                    prev=prev),
         _flash_row("mixtral-swa4096-S4352", 1, 48, 8, MOE_WINDOW_S, 128, window=4096,
                    seed=5, prev=prev),
+        # jamba-v0.1-52b's heads (a GQA group of 4), causal, no window
+        _flash_row("jamba-causal", 4, 32, 8, 2048, 128, seed=6, prev=prev),
     ]
     ssd = [
         _ssd_row("mamba2-S2048", 4, 16, 48, 64, 128, prev=prev),
         _ssd_row("mamba2-S128", 4, 1, 48, 64, 128, seed=1, prev=prev),
         # the serve phase's cached prefill of 4 x 256 tokens
         _ssd_row("mamba2-serve-prefill-S256", 4, 2, 48, 64, 128, seed=2, prev=prev),
+        # jamba-v0.1-52b's Mamba layers: 128 heads, d_state 16
+        _ssd_row("jamba-S2048", 4, 16, 128, 64, 16, seed=3, prev=prev),
+        # the hybrid phase's cached prefill of 4 x 256 tokens: another head tiling
+        _ssd_row("jamba-serve-prefill-S256", 4, 2, 128, 64, 16, seed=4, prev=prev),
     ]
     _ssd_short_check()
     ops.reset_launch_counts()
@@ -2151,15 +2177,27 @@ TIE_TOL = 1e-3                    # a token off the forward's argmax: a tie with
 ROUTE_TIE = 1e-4
 
 
+def _has_ssm(model) -> bool:
+    return any(b.meta.kind == "ssm" for b in model.layers)
+
+
+def _padded_len(model, L: int) -> int:
+    """The length the cache-less forward runs L tokens at: a model with SSM
+    layers takes whole 128-token chunks above 128 (its forward takes no
+    other length there)."""
+    return L + 128 - L % 128 if _has_ssm(model) and L > 128 and L % 128 else L
+
+
 def _teacher_forced(model, seq):
-    """The cache-less forward's logits over ``seq`` (B, L).  An SSM model
-    runs L padded to a whole number of 128-token chunks (its forward takes
-    no other length above 128); by causality the first L rows are unchanged."""
+    """The cache-less forward's logits over ``seq`` (B, L), run at
+    ``_padded_len`` (zero tokens after the L); by causality the first L
+    rows are unchanged."""
     import torch
 
     L = seq.shape[1]
-    if model.cfg.layer_kind(0) == "ssm" and L > 128 and L % 128:
-        seq = torch.cat([seq, seq.new_zeros(seq.shape[0], 128 - L % 128)], dim=1)
+    pad = _padded_len(model, L) - L
+    if pad:
+        seq = torch.cat([seq, seq.new_zeros(seq.shape[0], pad)], dim=1)
     return model.apply({"tokens": seq})[:, :L]
 
 
@@ -2226,38 +2264,56 @@ def _cached_decode(model, prompts, rows, steps):
             routes)
 
 
-def _ssd_prefill_vs_plain(model, prompts, rows, logits, cache) -> dict:
-    """An SSM model's cached prefill again through the plain versions, on the
-    same prompts: the logits and the carried states (conv, SSM) held to the
-    prefill through ``ssd_chunk`` within FORWARD_TOL, as the edge phase
-    holds its forward through the kernels to the plain one."""
-    with through_plain_versions():
+def _ssd_prefill_vs_plain(model, prompts, rows, logits, cache, routes) -> dict:
+    """A model's cached prefill with SSM layers again through the plain
+    versions, on the same prompts: the logits and the SSM layers' carried
+    states (conv, SSM) held to the prefill through ``ssd_chunk`` within
+    FORWARD_TOL, as the edge phase holds its forward through the kernels to
+    the plain one.  With MoE layers the plain prefill takes ``routes`` (the
+    first prefill's expert ids) where its own differ by a tie."""
+    from _torch_moe_cases import forced_routes
+
+    forcing = forced_routes(routes, ROUTE_TIE) if routes else contextlib.nullcontext([])
+    with through_plain_versions(), forcing as forced:
         plain, plain_cache, counts = _cached_prefill(model, prompts, rows)
     l_abs, l_rel = _max_rel_rows(logits, plain)
-    conv = max(_max_rel(g[0], w[0])[1] for g, w in zip(cache, plain_cache))
-    state = max(_max_rel(g[1], w[1])[1] for g, w in zip(cache, plain_cache))
+    ssm = [(g, w) for b, g, w in zip(model.layers, cache, plain_cache)
+           if b.meta.kind == "ssm"]
+    conv = max(_max_rel(g[0], w[0])[1] for g, w in ssm)
+    state = max(_max_rel(g[1], w[1])[1] for g, w in ssm)
     require(max(l_rel, conv, state) <= FORWARD_TOL and counts["ssd_chunk"] == 0,
             f"{model.cfg.name}: cached prefill through ssd_chunk vs the plain versions: "
             f"logits {l_rel}, conv state {conv}, SSM state {state}, launches {counts}")
-    return {"plain_prefill_max_abs_err": l_abs, "plain_prefill_max_rel_err": l_rel,
-            "plain_conv_state_max_rel_err": conv, "plain_ssm_state_max_rel_err": state}
+    row = {"plain_prefill_max_abs_err": l_abs, "plain_prefill_max_rel_err": l_rel,
+           "plain_conv_state_max_rel_err": conv, "plain_ssm_state_max_rel_err": state}
+    if routes:
+        row["plain_prefill_forced_route_ties"] = forced
+    return row
 
 
 def _routed_like(model, routes, batch: int, forced: list):
     """A context in which ``model``'s cache-less forward over the tokens of
     the calls that recorded ``routes`` (their MoE layers' expert ids, in
     call order) takes those ids where its own differ only by a tie
-    (ROUTE_TIE); the forced tokens are appended to ``forced``.  For a model
+    (ROUTE_TIE); the forced tokens are appended to ``forced``.  Tokens the
+    forward adds (``_padded_len``) keep their own choices.  For a model
     without MoE layers, nothing."""
+    import torch
     from _torch_moe_cases import forced_routes, join_calls
 
     n_moe = sum(b.meta.is_moe for b in model.layers)
     if not n_moe:
         return contextlib.nullcontext()
+    want = join_calls(routes, n_moe, batch)
+    L = want[0].shape[0] // batch
+    pad = _padded_len(model, L) - L
+    if pad:
+        want = [torch.cat([w.reshape(batch, L, -1), w.new_full((batch, pad, w.shape[-1]), -1)],
+                          dim=1).reshape(-1, w.shape[-1]) for w in want]
 
     @contextlib.contextmanager
     def ctx():
-        with forced_routes(join_calls(routes, n_moe, batch), ROUTE_TIE) as got:
+        with forced_routes(want, ROUTE_TIE) as got:
             yield
         forced.extend(got)
 
@@ -2295,8 +2351,10 @@ def _check_cached(model, prompts, rows, what) -> dict:
     require(max(d_rel) <= FORWARD_TOL,
             f"{model.cfg.name} {what}: decode vs forward {d_rel}")
     del ref, steps
-    if model.cfg.layer_kind(0) == "ssm":
-        row.update(_ssd_prefill_vs_plain(model, prompts, rows, logits, prefilled))
+    if _has_ssm(model):
+        n_moe = sum(b.meta.is_moe for b in model.layers)
+        row.update(_ssd_prefill_vs_plain(model, prompts, rows, logits, prefilled,
+                                         routes[:n_moe]))
     return row
 
 
@@ -2585,11 +2643,13 @@ def _moe_drop_check(model, g) -> dict:
     return row
 
 
-def _moe_forward_vs_plain(model, tokens, what) -> tuple:
-    """(c), (d) The cache-less forward through the kernels, its launches
-    counted, against the same forward with attention through the plain
-    versions, which takes the first run's expert choices where its own
-    differ by a tie: (row, ms per forward, launch counts)."""
+def _routed_forward_vs_plain(model, tokens, what) -> tuple:
+    """The cache-less forward of an MoE model through the kernels, its
+    launches counted (``flash_attention`` once an attention layer,
+    ``ssd_chunk`` once an SSM layer, nothing else), against the same
+    forward through the plain versions, which takes the first run's expert
+    choices where its own differ by a tie: (row, ms per forward, launch
+    counts)."""
     import torch
     from _torch_moe_cases import forced_routes, recorded_routes
     from repro_torch.kernels import ops
@@ -2615,15 +2675,76 @@ def _moe_forward_vs_plain(model, tokens, what) -> tuple:
            "tokens_per_s": tokens.numel() / (ms / 1e3), "plain_ms_per_forward": plain_ms,
            "plain_max_abs_err": p_abs, "plain_max_rel_err": p_rel,
            "forced_route_ties": forced}
+    name = model.cfg.name
+    kinds = [b.meta.kind for b in model.layers]
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=kinds.count("attn"), ssd_chunk=kinds.count("ssm"))
     require(bool(torch.isfinite(logits).all())
             and tuple(logits.shape) == (*tokens.shape, model.cfg.vocab),
-            f"{MOE_ARCH} {what}: finite logits of the expected shape")
-    require(p_rel <= FORWARD_TOL, f"{MOE_ARCH} {what}: kernels vs plain forward {p_rel}")
-    require(counts["flash_attention"] == model.cfg.n_layers
-            and all(v == 0 for k, v in counts.items() if k != "flash_attention"),
-            f"{MOE_ARCH} {what}: flash_attention once a layer, nothing else: {counts}")
+            f"{name} {what}: finite logits of the expected shape")
+    require(p_rel <= FORWARD_TOL, f"{name} {what}: kernels vs plain forward {p_rel}")
+    require(counts == want,
+            f"{name} {what}: launches {counts}, want one a layer of its mixer's: {want}")
     del logits, plain
     return row, ms, counts
+
+
+def _cut_model(arch, layers, seed, phase):
+    """``arch`` at full width cut to ``layers`` of its layers, random float32
+    weights from a seeded generator on the card, its size printed: (model,
+    the generator, the weights' bytes)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    full = configs.get(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model = transformer.Model(dataclasses.replace(full, n_layers=layers)).init(g)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": phase, "model": arch, "layers": layers, "layers_full": full.n_layers,
+          "layer_kinds": [[b.meta.kind, b.meta.is_moe] for b in model.layers],
+          "params": n_params, "weight_gb": n_params * 4 / 1e9,
+          "init_s": time.perf_counter() - t0, "card": CARD})
+    return model, g, n_params * 4
+
+
+def _routed_serving_checks(model, g, weight_bytes, phase, part) -> None:
+    """An MoE model's serving checks at capacity factor MOE_DECODE_FACTOR: a
+    decode step routes B tokens into C >= 8 rows an expert, a forward over
+    the whole sequence T into other C, so at the config's factor the two
+    may drop differently (the reference's decode test runs at 8.0).  The
+    cached prefill and decode against the forward, the prefill launching
+    ``ssd_chunk`` once an SSM layer and nothing else; the engine with one
+    slot and with four, the decode step beside its weight-read bound; last
+    the phase's peak GiB, from before these checks (they reset the
+    counter) and during them."""
+    import torch
+    from _torch_moe_cases import capacity_factor
+
+    name = model.cfg.name
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    bound_ms = weight_bytes / PEAK_BYTES * 1e3
+    tag = {"phase": phase, "part": part, "capacity_factor": MOE_DECODE_FACTOR}
+    n_ssm = sum(b.meta.kind == "ssm" for b in model.layers)
+    with capacity_factor(model, MOE_DECODE_FACTOR):
+        prompts = torch.randint(0, model.cfg.vocab, (SERVE_B, SERVE_S), generator=g,
+                                device="cuda")
+        row = _check_cached(model, prompts, SERVE_ROWS, "cached_prefill_decode")
+        want = {k: (n_ssm if k == "ssd_chunk" else 0) for k in row["prefill_launches"]}
+        require(row["prefill_launches"] == want,
+                f"{name}: cached prefill launches {row['prefill_launches']}, want {want}")
+        emit({**tag, **row, "decode_bound_ms": bound_ms, "card": CARD})
+        emit({**tag, **_engine_one_slot(model), "card": CARD})
+        emit({**tag, **_engine_four_slots(model), "decode_bound_ms": bound_ms, "card": CARD})
+    emit({"phase": phase, "model": name,
+          "peak_gb": max(peak, torch.cuda.max_memory_allocated()) / 2**30, "card": CARD})
 
 
 def phase_moe(seed: int = 0) -> dict:
@@ -2634,58 +2755,68 @@ def phase_moe(seed: int = 0) -> dict:
     plain versions, (e) at capacity factor 8.0 the cached prefill and
     decode against the forward, and the engine with one slot and with four.
     Returns the kernels' launches over the forward of (c)."""
-    import dataclasses
-
     import torch
-    from _torch_moe_cases import capacity_factor
-    from repro_torch import configs
-    from repro_torch.models import transformer
 
-    full = configs.get(MOE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    g = torch.Generator(device="cuda").manual_seed(seed + 300)
-    model = transformer.Model(cfg).init(g)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = n_params * 4
-    emit({"phase": "moe", "model": MOE_ARCH, "layers": MOE_LAYERS,
-          "layers_full": full.n_layers, "params": n_params, "weight_gb": weight_bytes / 1e9,
-          "init_s": time.perf_counter() - t0, "card": CARD})
+    model, g, weight_bytes = _cut_model(MOE_ARCH, MOE_LAYERS, seed + 300, "moe")
+    cfg = model.cfg
     emit({"phase": "moe", "part": "a", **_moe_layer_check(model, g), "card": CARD})
     emit({"phase": "moe", "part": "b", **_moe_drop_check(model, g), "card": CARD})
     toks = torch.randint(0, cfg.vocab, (EDGE_B, EDGE_S), generator=g, device="cuda")
-    row, ms, launches = _moe_forward_vs_plain(model, toks, "forward")
+    row, ms, launches = _routed_forward_vs_plain(model, toks, "forward")
     emit({"phase": "moe", "part": "c", **row, "card": CARD})
     _forward_profile(MOE_ARCH, model, {"tokens": toks}, ms, phase="moe_profile")
     long = torch.randint(0, cfg.vocab, (1, MOE_WINDOW_S), generator=g, device="cuda")
-    row, _, _ = _moe_forward_vs_plain(model, long, "window")
+    row, _, _ = _routed_forward_vs_plain(model, long, "window")
     emit({"phase": "moe", "part": "d", "window": cfg.window, **row, "card": CARD})
     del toks, long
-    # the phase's peak: the engine check below resets the counter
-    peak = torch.cuda.max_memory_allocated()
+    _routed_serving_checks(model, g, weight_bytes, "moe", "e")
+    del model
     torch.cuda.empty_cache()
-    # (e) a decode step routes B tokens into C >= 8 rows an expert, a forward
-    # over the whole sequence T into other C: at the config's factor the two
-    # may drop differently, so (e) runs at the reference decode test's 8.0
-    bound_ms = weight_bytes / PEAK_BYTES * 1e3
-    with capacity_factor(model, MOE_DECODE_FACTOR):
-        prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g,
-                                device="cuda")
-        row = _check_cached(model, prompts, SERVE_ROWS, "cached_prefill_decode")
-        require(all(v == 0 for v in row["prefill_launches"].values()),
-                f"{MOE_ARCH}: cached prefill launches {row['prefill_launches']}")
-        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
-              **row, "decode_bound_ms": bound_ms, "card": CARD})
-        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
-              **_engine_one_slot(model), "card": CARD})
-        emit({"phase": "moe", "part": "e", "capacity_factor": MOE_DECODE_FACTOR,
-              **_engine_four_slots(model), "decode_bound_ms": bound_ms, "card": CARD})
-    emit({"phase": "moe", "model": MOE_ARCH,
-          "peak_gb": max(peak, torch.cuda.max_memory_allocated()) / 2**30, "card": CARD})
-    del model, prompts
+    torch.cuda.reset_peak_memory_stats()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The Jamba hybrid: jamba-v0.1-52b at full width, one period of its layers
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8                 # of 32: one period, about 53 GB in float32
+# the kinds of one period: attention on layer 3, MoE on the even layers
+HYBRID_PERIOD = (("ssm", True), ("ssm", False), ("ssm", True), ("attn", False),
+                 ("ssm", True), ("ssm", False), ("ssm", True), ("ssm", False))
+
+
+def phase_hybrid(seed: int = 0) -> dict:
+    """jamba-v0.1-52b at full width, HYBRID_LAYERS (one period) of its 32
+    layers, random float32 weights from a seeded generator on the card:
+    (a) the forward of 4 x 2048 tokens against the plain versions, route
+    ties forced; (b) at capacity factor 8.0 the cached prefill and decode
+    against the forward, the prefill against itself through the plain
+    versions, and the engine with one slot and with four.  Returns the
+    kernels' launches over the forward of (a)."""
+    import torch
+
+    model, g, weight_bytes = _cut_model(HYBRID_ARCH, HYBRID_LAYERS, seed + 400, "hybrid")
+    cfg = model.cfg
+    kinds = tuple((b.meta.kind, b.meta.is_moe) for b in model.layers)
+    require(kinds == HYBRID_PERIOD, f"{HYBRID_ARCH}: layer kinds {kinds}")
+    toks = torch.randint(0, cfg.vocab, (EDGE_B, EDGE_S), generator=g, device="cuda")
+    # a first forward, untimed for the row: the allocator's blocks and
+    # cuBLAS's choices at these shapes (the moe phase's (a) and (b) warm
+    # mixtral's before its forward)
+    t0 = time.perf_counter()
+    model.apply({"tokens": toks})
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    row, ms, launches = _routed_forward_vs_plain(model, toks, "forward")
+    emit({"phase": "hybrid", "part": "a", "d_state": cfg.ssm.d_state, **row,
+          "cold_ms_per_forward": cold_ms,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "card": CARD})
+    _forward_profile(HYBRID_ARCH, model, {"tokens": toks}, ms, phase="hybrid_profile")
+    del toks
+    _routed_serving_checks(model, g, weight_bytes, "hybrid", "b")
+    del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return launches
@@ -4166,6 +4297,7 @@ def main(argv=None) -> int:
     model_launches = phased("edge_forwards", phase_edge_forwards, chains)
     serve_launches = phased("serve", phase_serve)
     moe_launches = phased("moe", phase_moe)
+    hybrid_launches = phased("hybrid", phase_hybrid)
     for name, rows in phased("solve_kernels", phase_solve_kernels).items():
         kernels[name] = rows + kernels.get(name, [])
     oracle_launches = phased("oracle", phase_oracle)
@@ -4206,9 +4338,10 @@ def main(argv=None) -> int:
     launches.update({k: metro_launches[k] for k in ("bsr_chain", "tagged_nbr")})
     launches.update(model_launches)
     launches.update(oracle_launches)
-    # the model kernels' main paths: the edge forwards and mixtral's forward
-    for name, n in moe_launches.items():
-        launches[name] += n
+    # the model kernels' main paths: the edge forwards, mixtral's and jamba's
+    # forwards
+    for name in launches:
+        launches[name] += moe_launches[name] + hybrid_launches[name]
 
     # the main row of each kernel (its main path's shape) among its cases
     meta = {
@@ -4246,6 +4379,7 @@ def main(argv=None) -> int:
                      "library_ms": main_row["library_ms"],
                      "serve_prefill_launches": serve_launches[name],
                      "moe_forward_launches": moe_launches[name],
+                     "hybrid_forward_launches": hybrid_launches[name],
                      "bound_tc_ms": main_row.get("bound_tc_ms"),
                      "prev_ms": main_row.get("prev_ms"),
                      "prev_launches_per_call": main_row.get("prev_launches_per_call"),

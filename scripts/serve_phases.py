@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The serving path alone on one card: ``chip_smoke.py``'s ``build``,
-``model_kernels``, ``serve`` and ``moe`` phases, in that order.
+``model_kernels``, ``serve``, ``moe`` and ``hybrid`` phases, in that order.
 
-    python3 scripts/serve_phases.py [--phases model_kernels,serve,moe]
+    python3 scripts/serve_phases.py [--phases model_kernels,serve,moe,hybrid]
 
 Prints the card's ``nvidia-smi`` name and power limit, then the phases'
 JSON lines as ``chip_smoke.py`` prints them (the model kernels against
@@ -10,12 +10,14 @@ their plain versions; the cached prefill and decode checks of
 internlm2-1.8b, mamba2-780m and gemma2-9b at full width, the decode step
 timed at each check's cache, the engine, the blockwise forward, the
 launcher; mixtral-8x22b's MoE layer, drops, forwards, cached decode and
-engine), and last one line with each kernel's launches over the cached
-prefills and mixtral's forward and each phase's seconds.  ``build`` always
-runs; ``--phases`` picks the others (``--phases moe``: the MoE phase
-alone).  It fails where a check of those phases fails.  A few minutes on
-one H100 (``--phases moe``: about 2 with the build), against the whole
-smoke's 14-20.
+engine; jamba-v0.1-52b's forward, cached decode and engine), and last one
+line with each kernel's launches over the cached prefills and mixtral's
+and jamba's forwards and each phase's seconds.  ``build`` always runs;
+``--phases`` picks the others (``--phases moe``: the MoE phase alone;
+``--phases model_kernels,hybrid``: the kernels and the hybrid).  It fails
+where a check of those phases fails.  A few minutes on one H100
+(``--phases moe``: about 2 with the build), against the whole smoke's
+14-20.
 """
 
 import argparse
@@ -29,7 +31,7 @@ sys.path[:0] = [HERE, os.path.join(HERE, "src"), os.path.join(HERE, "tests")]
 import chip_smoke as cs  # noqa: E402
 
 PHASES = {"model_kernels": lambda: cs.phase_model_kernels(None),
-          "serve": cs.phase_serve, "moe": cs.phase_moe}
+          "serve": cs.phase_serve, "moe": cs.phase_moe, "hybrid": cs.phase_hybrid}
 
 
 def main(argv=None) -> int:

@@ -19,7 +19,10 @@
 // against (Q P + 2 Q) floats read and (Q P + P N) written per head: at
 // mamba2-780m's shape (P = 64, N = 128) 9.9 GFLOP against 313 MB, so with
 // the products on tensor cores it is bound by bytes (0.094 ms at
-// 3.35 TB/s), on the float32 CUDA cores by operations.
+// 3.35 TB/s), on the float32 CUDA cores by operations.  At
+// jamba-v0.1-52b's (H = 128, P = 64, N = 16) C B^T is two k-steps and the
+// state an eighth of the above's a head: 13.2 GFLOP against 580 MB at
+// B x nc = 64, bound by bytes on tensor cores (0.17 ms) as well.
 //
 // Why three-term TF32 and not TF32: the port holds float32 parity with its
 // plain version (2e-5 of the largest |value|).  One TF32 product keeps 11
@@ -205,6 +208,8 @@ ssd_chunk_kernel(const float* __restrict__ xh, const float* __restrict__ dt,
   constexpr int kMb = P / 16;            // state row blocks of 16
   constexpr int kWpm = kWarps / kMb;     // warps per state row block
   constexpr int kSn = N / 8 / kWpm;      // state column tiles per warp
+  // every warp writes state tiles, and the warps cover all N / 8 of them
+  static_assert(kSn >= 1 && kSn * kWpm == N / 8, "state tiling: take (P, N) with N >= P / 4");
   extern __shared__ __align__(16) float smem[];
   const float* Bs = smem + L::kB;
   const float* Cs = smem + L::kC;
@@ -445,6 +450,13 @@ int launch_n(int N, const float* xh, const float* dt, const float* cum, const fl
              const float* Cc, float* y, float* state, int BNC, int H, int G,
              cudaStream_t stream) {
   switch (N) {
+    case 16:
+      // Jamba's d_state: at P = 32 the state tiling has no column tile a
+      // warp (N / 8 = 2 tiles over 4 warps a row block), so P = 64 only
+      if constexpr (P == 64)
+        return launch<P, 16>(xh, dt, cum, Bc, Cc, y, state, BNC, H, G, stream);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
     case 32: return launch<P, 32>(xh, dt, cum, Bc, Cc, y, state, BNC, H, G, stream);
     case 64: return launch<P, 64>(xh, dt, cum, Bc, Cc, y, state, BNC, H, G, stream);
     case 128: return launch<P, 128>(xh, dt, cum, Bc, Cc, y, state, BNC, H, G, stream);
@@ -458,8 +470,8 @@ extern "C" {
 
 // xh, y: (BNC, Q, H, P); dt, cum: (BNC, Q, H); Bc, Cc: (BNC, Q, G, N);
 // state: (BNC, H, P, N); float32, contiguous; xh, Bc, Cc, y and state
-// 16-byte aligned.  Q = 128, P in {32, 64}, N in {32, 64, 128},
-// H % G == 0.  Returns a CUDA error code.
+// 16-byte aligned.  Q = 128; (P, N) in {32} x {32, 64, 128} or {64} x
+// {16, 32, 64, 128}; H % G == 0.  Returns a CUDA error code.
 int repro_ssd_chunk(const float* xh, const float* dt, const float* cum, const float* Bc,
                     const float* Cc, float* y, float* state, int BNC, int H, int G,
                     int P, int N, cudaStream_t stream) {

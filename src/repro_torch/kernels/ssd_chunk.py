@@ -36,10 +36,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Shapes the CUDA kernel takes: chunk length, head dim, state size.
+# Shapes the CUDA kernel takes: the chunk length and the (head dim, state
+# size) pairs.  N = 16 (Jamba's d_state) only at P = 64: at P = 32 the
+# kernel's state tiling leaves its warps no column tile.
 CHUNK = 128
-HEAD_DIMS = (32, 64)
-STATES = (32, 64, 128)
+SHAPES = ((32, 32), (32, 64), (32, 128), (64, 16), (64, 32), (64, 64), (64, 128))
 
 
 def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
@@ -82,9 +83,9 @@ def ssd_chunk_fwd(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 
     CUDA tensors: one launch of ``csrc/ssd_chunk.cu``, one thread block per
     (batch * chunk, B/C group, tile of heads), C B^T formed once a block;
-    Q = 128 (``ops.ssd_chunk`` pads a shorter chunk), P in (32, 64), N in
-    (32, 64, 128), xh, Bc and Cc 16-byte aligned.  CPU tensors:
-    :func:`ssd_chunk_plain`.
+    Q = 128 (``ops.ssd_chunk`` pads a shorter chunk), (P, N) in ``SHAPES``,
+    xh, Bc and Cc 16-byte aligned.  Raises ``ValueError`` for any other
+    shape.  CPU tensors: :func:`ssd_chunk_plain`.
     """
     if xh.device.type == "cpu":
         return ssd_chunk_plain(xh, dt, cum, Bc, Cc)
@@ -97,11 +98,11 @@ def ssd_chunk_fwd(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     G, N = Bc.shape[3], Bc.shape[4]
     if (dt.shape != (Bsz, nc, Q, H) or cum.shape != dt.shape
             or Bc.shape != (Bsz, nc, Q, G, N) or Cc.shape != Bc.shape or H % G
-            or Q != CHUNK or P not in HEAD_DIMS or N not in STATES):
+            or Q != CHUNK or (P, N) not in SHAPES):
         raise ValueError(f"ssd_chunk: shapes xh {tuple(xh.shape)}, dt "
                          f"{tuple(dt.shape)}, cum {tuple(cum.shape)}, Bc "
                          f"{tuple(Bc.shape)}, Cc {tuple(Cc.shape)} not taken (Q "
-                         f"{CHUNK}, P in {HEAD_DIMS}, N in {STATES}, H % G == 0)")
+                         f"{CHUNK}, (P, N) in {SHAPES}, H % G == 0)")
     if any(t.device != xh.device for t in (dt, cum, Bc, Cc)):
         raise ValueError("ssd_chunk: all inputs must be on one device")
     if any(t.data_ptr() % 16 for t in (xh, Bc, Cc)):

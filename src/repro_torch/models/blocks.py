@@ -3,12 +3,17 @@
 Port of ``repro.models.blocks`` for a GQA attention (with Gemma-2's
 soft-capping and local/global windows) or Mamba-2 SSD mixer, and a dense
 SwiGLU/GeGLU FFN, an MoE FFN (``models.moe``) or none (pure-SSM archs),
-with Gemma-2's post-norms after the mixer and the FFN.  One :class:`Block`
-module per layer; its parameters carry the reference's names and shapes
-(``ln1``, ``mixer.wq`` ..., ``ln1_post``, ``ln2``, ``ffn.w_gate`` or
-``ffn.router`` ..., ``ln2_post``).  A block runs with or without its
-layer's cache (:func:`init_block_cache`).  MLA, the Jamba hybrid and the
-audio/vision frontends are not ported (:func:`check_supported`).
+with Gemma-2's post-norms after the mixer and the FFN.  A layer's kinds
+come from the config (:func:`layer_meta`), so Jamba's hybrid stack mixes
+them: an attention layer every ``hybrid_attn_period`` at
+``hybrid_attn_offset``, Mamba-2 elsewhere, an MoE FFN every ``moe.every``
+layers and a dense one between (an SSM layer of a hybrid has an FFN; a
+pure-SSM arch's has none).  One :class:`Block` module per layer; its
+parameters carry the reference's names and shapes (``ln1``, ``mixer.wq``
+..., ``ln1_post``, ``ln2``, ``ffn.w_gate`` or ``ffn.router`` ...,
+``ln2_post``).  A block runs with or without its layer's cache
+(:func:`init_block_cache`).  MLA and the audio/vision frontends are not
+ported (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.network import Device
 from repro_torch.models import attention, layers, moe, ssm
 
-# Where the parts of the model substrate that are not ported yet are queued.
+# Where the parts of the model substrate that are not ported yet are queued:
+# MLA (item 6b) and the audio/vision frontends (item 6c).
 TODO = "ROADMAP Queue 1, Transformer substrate, the rest"
 
 
@@ -47,8 +53,6 @@ def layer_meta(cfg: ModelConfig, idx: int) -> LayerMeta:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    if cfg.hybrid_attn_period:
-        missing.append("the Jamba attention/SSM hybrid (item 6d)")
     if cfg.attn_kind == "mla":
         missing.append("MLA attention (item 6b)")
     if cfg.frontend is not None or cfg.encoder_only:

@@ -96,7 +96,9 @@ def recorded_routes():
 def forced_routes(want: list, tie: float):
     """Within the block the i-th ``moe.route`` call takes ``want[i]`` (T, k)
     as its expert ids wherever its own differ, its gate weights and aux
-    loss formed from its own probabilities at those ids.  Yields a list of
+    loss formed from its own probabilities at those ids; a row of -1 in
+    ``want[i]`` (a token the recorded run did not see) keeps the call's
+    own choices.  Yields a list of
     (call, token, gap) for every forced token, gap the largest difference
     of its own probability between its own and the wanted choices; a gap
     above ``tie`` raises ``AssertionError``."""
@@ -107,6 +109,7 @@ def forced_routes(want: list, tie: float):
         call = len(seen)
         seen.append(call)
         target = want[call].to(ids.device)
+        target = torch.where(target < 0, ids, target)
         differ = (ids != target).any(-1)
         if not bool(differ.any()):
             return gw, ids, aux, probs

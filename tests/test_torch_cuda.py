@@ -619,7 +619,8 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, S, H, KV, hd, c
 
 
 @pytest.mark.parametrize("nc,H,P,N,G", [(2, 4, 32, 32, 1), (1, 6, 64, 128, 2),
-                                        (3, 4, 64, 64, 4)])
+                                        (3, 4, 64, 64, 4),
+                                        (2, 8, 64, 16, 1)])     # Jamba's (P, N)
 def test_ssd_chunk_kernel_matches_plain(cuda, nc, H, P, N, G):
     from repro_torch.kernels import ssd_chunk as sc
 
@@ -631,7 +632,9 @@ def test_ssd_chunk_kernel_matches_plain(cuda, nc, H, P, N, G):
     cum = torch.cumsum(dt * A, dim=2)
     Bc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
     Cc = 0.3 * torch.randn((B, nc, Q, G, N), generator=g, device=cuda)
+    before = sc.ssd_chunk_fwd.launches
     y, st = sc.ssd_chunk_fwd(xh, dt, cum, Bc, Cc)
+    assert sc.ssd_chunk_fwd.launches == before + 1
     yw, sw = sc.ssd_chunk_plain(xh, dt, cum, Bc, Cc)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
@@ -669,6 +672,8 @@ def test_flash_attention_kernel_tilings(cuda, S, H, KV, hd, window, seq_len):
     (2, 3, 8, 32, 32, 4, 1.0),
     (2, 1, 6, 32, 64, 2, 1.0),            # one chunk
     (1, 2, 12, 64, 128, 4, 50.0),         # A = -(1..H) x 50: cum very negative
+    (4, 3, 128, 64, 16, 1, 1.0),          # Jamba's heads and (P, N), 3 chunks
+    (2, 2, 128, 64, 16, 1, 50.0),
 ])
 def test_ssd_chunk_kernel_tilings(cuda, B, nc, H, P, N, G, a_scale):
     """The tensor-core kernel's head tiles and groups against the plain
@@ -728,6 +733,13 @@ def test_model_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b = torch.zeros((1, 1, 64, 1, 32), device=cuda)
     with pytest.raises(ValueError):
         sc.ssd_chunk_fwd(x, d, d, b, b)
+    x = torch.zeros((1, 1, 128, 2, 32), device=cuda)        # (P, N) = (32, 16)
+    d = torch.zeros((1, 1, 128, 2), device=cuda)
+    b = torch.zeros((1, 1, 128, 1, 16), device=cuda)
+    before = sc.ssd_chunk_fwd.launches
+    with pytest.raises(ValueError, match=r"\(P, N\) in"):
+        sc.ssd_chunk_fwd(x, d, d, b, b)
+    assert sc.ssd_chunk_fwd.launches == before
 
 
 def _plain_forward(monkeypatch, model, batch, **kw):
@@ -925,6 +937,50 @@ def test_reduced_mixtral_forward_on_card(cuda, monkeypatch, S):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(logits).all())
     assert _max_rel(logits, plain) <= 1e-4
+    assert abs(float(aux) - float(plain_aux)) <= 1e-6 * float(plain_aux)
+
+
+# ---------------------------------------------------------------------------
+# the Jamba hybrid: attention and Mamba-2 layers, MoE every second layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [100, 256])
+def test_reduced_hybrid_forward_on_card(cuda, monkeypatch, S):
+    """Reduced Jamba (SSM + MoE, attention + dense) at the full config's SSM
+    shape (d_state 16, head_dim 64: the kernel's (64, 16) pair) on 2 x S
+    tokens: ``ssd_chunk`` and ``flash_attention`` once each, and the forward
+    within 1e-4 of the one through the plain versions, which takes the
+    first run's expert choices where its own differ by a tie (1e-4 in
+    probability).  The cached prefill of the same tokens: ``ssd_chunk``
+    once (its SSM layer), no flash launch, within 1e-4 of the forward."""
+    from _torch_moe_cases import forced_routes, recorded_routes
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    red = configs.get("jamba-v0.1-52b", reduced=True)
+    cfg = dataclasses.replace(red, ssm=dataclasses.replace(red.ssm, d_state=16, head_dim=64))
+    model = transformer.Model(cfg).init(9)
+    toks = torch.randint(0, cfg.vocab, (2, S),
+                         generator=torch.Generator(device=cuda).manual_seed(10), device=cuda)
+    ops.reset_launch_counts()
+    with recorded_routes() as routes:
+        logits, aux = model.apply({"tokens": toks}, return_aux=True)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == 1 and counts["flash_attention"] == 1
+    assert sum(counts.values()) == 2
+    with forced_routes(routes, 1e-4):
+        plain, plain_aux = _plain_forward(monkeypatch, model, {"tokens": toks},
+                                          return_aux=True)
+    ops.reset_launch_counts()
+    with forced_routes(routes, 1e-4):
+        cached, _ = model.apply({"tokens": toks},
+                                cache=model.init_cache(2, S + 8, dtype=torch.float32),
+                                cache_index=0)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert counts["ssd_chunk"] == 1 and sum(counts.values()) == 1
+    assert bool(torch.isfinite(logits).all())
+    assert _max_rel(logits, plain) <= 1e-4 and _max_rel(cached, logits) <= 1e-4
     assert abs(float(aux) - float(plain_aux)) <= 1e-6 * float(plain_aux)
 
 
